@@ -1,0 +1,44 @@
+"""hqp_tpu_torch -- the PyTorch/CUDA port of hqp_tpu.
+
+The module layout and names follow ``hqp_tpu`` one to one, so each piece
+has an obvious counterpart in the JAX reference package:
+
+  ops/       small-block linear algebra (``smalllin``, ``blocktri``) and the
+             two hand-written CUDA kernels with their plain twins:
+             ``gj_cuda`` (batched pivoted Gauss-Jordan interior inverse) and
+             ``thomas_cuda`` (batched block-Thomas master solve); ``_build``
+             compiles ``csrc/*.cu`` with nvcc at first CUDA use
+  qp/        ``StageQP`` IR, shared KKT helpers, ``PartitionedKKT``,
+             ``Mehrotra`` interior point
+  sqp/       ``SqpSolver``/``SqpPowell`` and the block BFGS Hessian
+  docp/      stage-wise ``Docp`` programs with ``torch.func`` derivatives
+  models/    ``PrgDID``
+  utils/     registry and masked reductions over dataclasses of tensors
+  convert    numpy -> port data (tests feed both packages the same data)
+
+Differences in idiom, not in algorithm: dataclasses of tensors replace
+pytrees (``utils.masked.tmap`` maps them field-wise), every tensor carries
+an explicit ``device`` and ``dtype=torch.float64`` (there is no global x64
+switch), and the device-side ``lax`` loops of the reference run as host
+Python loops that read one scalar per test.
+"""
+
+import torch as _torch
+
+# TF32 off: the f32 factor path (PartitionedKKT(factor_dtype="f32")) uses
+# f32 products inside refinement loops, whose contraction needs true f32
+# rounding; TF32 keeps ~10 mantissa bits and would make the refinement
+# diverge (the counterpart of hqp_tpu/__init__.py's "highest" matmul
+# precision).  f64 work is unaffected.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+from hqp_tpu_torch.utils.registry import modules  # noqa: E402
+from hqp_tpu_torch.qp.program import StageQP  # noqa: E402
+from hqp_tpu_torch.qp.mehrotra import Mehrotra  # noqa: E402
+from hqp_tpu_torch.sqp.solver import SqpSolver, solve  # noqa: E402
+from hqp_tpu_torch.docp.program import Docp  # noqa: E402
+
+__all__ = ["modules", "StageQP", "Mehrotra", "SqpSolver", "solve", "Docp"]

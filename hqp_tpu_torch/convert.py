@@ -1,0 +1,48 @@
+"""numpy -> port data.
+
+The port never imports JAX, so data crosses between the two packages as
+numpy arrays: anything ``numpy.asarray`` accepts (numpy arrays, and the
+reference package's device arrays) goes in, tensors on the requested
+device come out.  Floating data becomes float64, boolean masks stay bool.
+Tests use these helpers to hand both packages the same inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from hqp_tpu_torch.qp.program import IneqGroups, StageQP
+
+_INEQ_FIELDS = ("bl", "bu", "gl", "gu")
+
+
+def tensor(a, device="cpu"):
+    """One array -> tensor (float64 unless boolean or integer)."""
+    a = np.array(a)  # a writable copy (device arrays export read-only)
+    if a.dtype == np.bool_ or np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a, device=device)
+    return torch.as_tensor(a.astype(np.float64), device=device)
+
+
+def ineq(src, device="cpu") -> IneqGroups:
+    """Object or dict with bl/bu/gl/gu -> IneqGroups."""
+    get = src.get if isinstance(src, dict) else \
+        (lambda f: getattr(src, f))
+    return IneqGroups(*[tensor(get(f), device) for f in _INEQ_FIELDS])
+
+
+def eq(src: dict, device="cpu") -> dict:
+    """Equality-group dict (``dyn``/``fix``/``gen``) -> dict of tensors."""
+    return {k: tensor(v, device) for k, v in src.items()}
+
+
+def stage_qp(src, device="cpu") -> StageQP:
+    """Any object with StageQP's attribute names -> StageQP."""
+    kw = {}
+    for fl in dataclasses.fields(StageQP):
+        v = getattr(src, fl.name, None)
+        kw[fl.name] = None if v is None else tensor(v, device)
+    return StageQP(**kw)

@@ -1,0 +1,306 @@
+"""Stage-wise DOCP program abstraction.
+
+Port of ``hqp_tpu/docp/program.py`` (reference: hqp/Hqp_Docp.{h,C}).  A
+program defines a discrete-time optimal control problem by per-stage
+functions
+
+    f(k, x_k, u_k)  -> x_{k+1}        (state transition, k = 0..K-1)
+    f0(k, x_k, u_k) -> scalar         (stage cost, summed over k = 0..K)
+    c(k, x_k, u_k)  -> R^mc           (general constraints)
+
+plus bound arrays.  Stage functions are written in torch ops that
+``torch.func`` can transform (build vectors with ``torch.stack``, not
+``torch.tensor``); all stages evaluate batched under ``torch.func.vmap``,
+and the Jacobians come from ``torch.func.jacfwd``.  Every program lives on
+an explicit ``device``; ``setup`` runs in host numpy and places only its
+final arrays there.
+
+Assembled QP form: :class:`hqp_tpu_torch.qp.program.StageQP`, with the
+per-stage variable v_k = (x_k, u_k) and u padded (fixed to 0) at stage K.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from hqp_tpu_torch.qp.program import StageQP
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for ``device``; raises if it names CUDA and there is
+    none (nothing carries on on the CPU instead)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           "available")
+    return dev
+
+
+class Docp:
+    """Base class for stage-structured programs.  Subclass and override
+    the dims, bounds and stage functions; set ``self.device`` (through
+    :func:`resolve_device`) in the constructor."""
+
+    K: int = 0
+    nx: int = 0
+    nu: int = 0
+    mc: int = 0
+    device: torch.device = torch.device("cpu")
+
+    name = "Docp"
+
+    # ---- user interface (override) ----------------------------------------
+
+    def setup_vars(self):
+        """Dict with optional keys x_init [K1, nx], u_init [K, nu],
+        x_min/x_max [K1, nx], u_min/u_max [K, nu], c_min/c_max [K1, mc].
+        Missing bounds default to +-inf, missing inits to zero."""
+        return {}
+
+    def f(self, k, x, u):
+        raise NotImplementedError
+
+    def f0(self, k, x, u):
+        return x.new_zeros(())
+
+    def c(self, k, x, u):
+        return x.new_zeros((0,))
+
+    # ---- assembled views ---------------------------------------------------
+
+    @property
+    def nv(self):
+        return self.nx + self.nu
+
+    def _t(self, a):
+        """Host array -> tensor on the program's device."""
+        a = np.asarray(a)
+        dt = torch.bool if a.dtype == np.bool_ else torch.float64
+        return torch.as_tensor(a, dtype=dt, device=self.device)
+
+    def setup(self):
+        """Initial iterate, bounds and QP skeleton (hqp/Hqp_Docp.C:400-758),
+        computed in host numpy and placed on the device once."""
+        K, K1, nx, nu, mc = self.K, self.K + 1, self.nx, self.nu, self.mc
+        v = self.setup_vars()
+        inf = np.inf
+
+        def get(key, shape, default):
+            a = v.get(key)
+            if a is None:
+                return np.full(shape, default, np.float64)
+            return np.asarray(a, np.float64).reshape(shape)
+
+        x_init = get("x_init", (K1, nx), 0.0)
+        u_init = get("u_init", (K, nu), 0.0)
+        x_min = get("x_min", (K1, nx), -inf)
+        x_max = get("x_max", (K1, nx), inf)
+        u_min = get("u_min", (K, nu), -inf)
+        u_max = get("u_max", (K, nu), inf)
+        c_min = get("c_min", (K1, mc), -inf)
+        c_max = get("c_max", (K1, mc), inf)
+
+        # fixed general constraints (c_min == c_max) become exact stage
+        # equality rows (GE_QP role, hqp/Hqp_IpLQDOCP.C:1377)
+        fixed_c = np.isfinite(c_min) & (c_min == c_max)
+        self._has_eqg = bool(fixed_c.any())
+        self._eqg_mask = self._t(fixed_c)
+        self._c_eq_target = self._t(np.where(fixed_c, c_min, 0.0))
+        c_min = np.where(fixed_c, -inf, c_min)
+        c_max = np.where(fixed_c, inf, c_max)
+
+        # fixed variables (the reference's _xu_eq bucket, Hqp_Docp.C:372):
+        # stage-0 states and fixed controls are pinned (structurally
+        # absent, values held in the iterate); fixed states at k >= 1 stay
+        # QP variables with lb == ub (StageQP 'fix' equality rows)
+        fx = np.isfinite(x_min) & (x_min == x_max)
+        fu = np.isfinite(u_min) & (u_min == u_max)
+        fx_pin = np.zeros_like(fx)
+        fx_pin[0] = fx[0]
+
+        upad = np.zeros((1, nu), bool)
+        var_mask = np.concatenate([~fx_pin, np.concatenate([~fu, upad])],
+                                  axis=1)
+        pin_mask = np.concatenate([fx_pin, np.concatenate([fu, upad])],
+                                  axis=1)
+        lb = np.concatenate([x_min, np.concatenate(
+            [u_min, np.full((1, nu), -inf)])], axis=1)
+        ub = np.concatenate([x_max, np.concatenate(
+            [u_max, np.full((1, nu), inf)])], axis=1)
+        # absent variables carry no bounds
+        lb = np.where(var_mask, lb, -inf)
+        ub = np.where(var_mask, ub, inf)
+        pin_vals = np.where(pin_mask, np.nan_to_num(
+            np.where(pin_mask, np.concatenate(
+                [x_min, np.concatenate([u_min, np.zeros((1, nu))])],
+                axis=1), 0.0)), 0.0)
+
+        x0 = np.concatenate(
+            [x_init, np.concatenate([u_init, np.zeros((1, nu))])], axis=1)
+        # clip into bounds, then pin fixed values exactly
+        x0 = np.clip(x0, lb, ub)
+        x0 = np.where(pin_mask, pin_vals, x0)
+
+        con_mask = np.isfinite(c_min) | np.isfinite(c_max)
+        # constraint arrays carry at least one (masked-off) row
+        if mc == 0:
+            c_min = np.full((K1, 1), -inf)
+            c_max = np.full((K1, 1), inf)
+            con_mask = np.zeros((K1, 1), bool)
+
+        self._pin_mask = self._t(pin_mask)
+        self._pin_vals = self._t(pin_vals)
+        self._bounds = tuple(self._t(a) for a in
+                             (lb, ub, c_min, c_max, var_mask, con_mask))
+        return self._t(x0)
+
+    # vectorized stage evaluations ------------------------------------------
+
+    def stage_all(self, k, x, u):
+        """(f, f0, c) for a stage k < K (override where they share work)."""
+        return (self.f(k, x, u), self.f0(k, x, u),
+                torch.atleast_1d(self.c(k, x, u)))
+
+    def stage_final(self, x, u):
+        """(f0, c) of the terminal stage (u is the zero padding)."""
+        K = torch.as_tensor(self.K, device=x.device)
+        return (self.f0(K, x, u), torch.atleast_1d(self.c(K, x, u)))
+
+    def _split_fns(self):
+        """Stage functions of v = (x, u).  Without constraints (mc == 0)
+        they leave c out: zero-size outputs are not transformed."""
+        nx, has_c = self.nx, self.mc > 0
+
+        def all_v(k, v):
+            f, f0, c = self.stage_all(k, v[:nx], v[nx:])
+            return (f, f0, c) if has_c else (f, f0)
+
+        def fin_v(v):
+            f0, c = self.stage_final(v[:nx], v[nx:])
+            return (f0, c) if has_c else (f0,)
+
+        return all_v, fin_v
+
+    def _ks(self):
+        return torch.arange(self.K, device=self.device)
+
+    def eval_vals(self, v):
+        """Objective, dynamics residual and constraint values
+        (Hqp_Docp::update_fbd, hqp/Hqp_Docp.C:831-892)."""
+        K, nx = self.K, self.nx
+        all_v, fin_v = self._split_fns()
+        out = torch.func.vmap(all_v)(self._ks(), v[:-1])
+        fin = fin_v(v[-1])
+        b = out[0] - v[1:, :nx]
+        if self.mc == 0:  # padded masked-off row (see setup())
+            cvals = v.new_zeros((K + 1, 1))
+        else:
+            cvals = torch.cat([out[2], fin[1][None]], dim=0)
+        return out[1].sum() + fin[0], b, cvals
+
+    def eval_derivs(self, v):
+        """A = [fx fu], objective gradient and C = dc/dv in one vectorized
+        forward-mode pass per stage (Hqp_Docp::update/update_grds,
+        hqp/Hqp_Docp.C:944-1193)."""
+        K = self.K
+        all_v, fin_v = self._split_fns()
+        jac = torch.func.vmap(torch.func.jacfwd(all_v, argnums=1))(
+            self._ks(), v[:-1])
+        jfin = torch.func.jacfwd(fin_v)(v[-1])
+        A = jac[0]
+        cgrad = torch.cat([jac[1], jfin[0][None]], dim=0)
+        if self.mc == 0:  # padded masked-off row (see setup())
+            C = v.new_zeros((K + 1, 1, self.nv))
+        else:
+            C = torch.cat([jac[2], jfin[1][None]], dim=0)
+        return A, cgrad, C
+
+    # program protocol consumed by the SQP solver ---------------------------
+
+    def make_qp(self, v, Q=None):
+        """Assemble the StageQP linearization at iterate v."""
+        lb, ub, c_min, c_max, var_mask, con_mask = self._bounds
+        f, b, cvals = self.eval_vals(v)
+        A, cgrad, C = self.eval_derivs(v)
+        if Q is None:
+            Q = v.new_zeros((self.K + 1, self.nv, self.nv))
+        eqg = {}
+        if self._has_eqg:
+            # fixed general constraints c(v) == t as exact equality rows
+            eqg = dict(E=C, eqg_mask=self._eqg_mask,
+                       e=torch.where(self._eqg_mask,
+                                     cvals - self._c_eq_target, 0.0))
+        qp = StageQP(Q=Q, c=cgrad, A=A, b=b, lb=lb - v, ub=ub - v,
+                     C=C, d_lo=c_min - cvals, d_up=c_max - cvals,
+                     var_mask=var_mask, con_mask=con_mask, **eqg)
+        return f, qp
+
+    def update_fbd_qp(self, qp: StageQP, v_old, v_new):
+        """Re-evaluate only values at v_new, keeping the derivatives of qp
+        (line search; Hqp_SqpProgram::update_fbd)."""
+        lb, ub, c_min, c_max, var_mask, con_mask = self._bounds
+        f, b, cvals = self.eval_vals(v_new)
+        upd = {}
+        if self._has_eqg:
+            upd["e"] = torch.where(self._eqg_mask,
+                                   cvals - self._c_eq_target, 0.0)
+        qp = dataclasses.replace(
+            qp, b=b, lb=lb - v_new, ub=ub - v_new,
+            d_lo=c_min - cvals, d_up=c_max - cvals, **upd)
+        return f, qp
+
+    def eval_grd_L(self, v, y, z):
+        """grad of the Lagrangian c - A'y - C'z at iterate v
+        (hqp/Hqp_SqpSolver.C:430-445), z an IneqGroups."""
+        A, cgrad, C = self.eval_derivs(v)
+        lb, ub, c_min, c_max, var_mask, con_mask = self._bounds
+        fmask = (torch.isfinite(lb) & torch.isfinite(ub) & (lb == ub)
+                 & var_mask)
+        yd = y["dyn"]
+        out = torch.zeros_like(v)
+        out[:-1] += torch.einsum("kij,ki->kj", A, yd)
+        out[1:, :self.nx] -= yd
+        out = out + torch.where(fmask, y["fix"], 0.0)
+        # bound/constraint multipliers, masking out IP sentinel entries
+        zbl = torch.where(torch.isfinite(lb) & var_mask, z.bl, 0.0)
+        zbu = torch.where(torch.isfinite(ub) & var_mask, z.bu, 0.0)
+        zg = (torch.where(torch.isfinite(c_min) & con_mask, z.gl, 0.0)
+              - torch.where(torch.isfinite(c_max) & con_mask, z.gu, 0.0))
+        out = out + (zbl - zbu) + torch.einsum("kij,ki->kj", C, zg)
+        if self._has_eqg and "gen" in y:
+            yg = torch.where(self._eqg_mask, y["gen"], 0.0)
+            out = out + torch.einsum("kij,ki->kj", C, yg)
+        return cgrad - out
+
+    def repin(self, v):
+        """Force pinned (fixed) variables to their values."""
+        return torch.where(self._pin_mask, self._pin_vals, v)
+
+    def split_blocks(self, vec):
+        """[K1, nv] is already the per-stage BFGS block layout."""
+        return vec
+
+    def q_to_blocks(self, Q):
+        return Q
+
+    def q_from_blocks(self, Qb):
+        return Qb
+
+    def simulate(self, v):
+        """Initial-value rollout from x_0 with the given controls
+        (Hqp_Docp::simulate, hqp/Hqp_Docp.C:793-830); a loop over K."""
+        nx = self.nx
+        all_v, _ = self._split_fns()
+        ks = self._ks()
+        x = v[0, :nx]
+        rows = []
+        for k in range(self.K):
+            vk = torch.cat([x, v[k, nx:]])
+            rows.append(vk)
+            x = all_v(ks[k], vk)[0]
+        rows.append(torch.cat([x, v[-1, nx:]]))
+        # re-pin fixed variables the rollout may have overwritten
+        return self.repin(torch.stack(rows))

@@ -1,0 +1,94 @@
+"""Small-matrix linear algebra, unrolled over the static block size.
+
+Port of ``hqp_tpu/ops/smalllin.py`` (``chol``, triangular solves,
+``cho_solve``; the pivot-free LU waits for the integrators
+that use it).  The per-stage blocks of the reference are tiny (a few to a
+few dozen rows), so the routines unroll over the static dimension and
+broadcast over any leading batch axes ([K] stages, [P] partitions, ...).
+Above ``_UNROLL_LIMIT`` they defer to ``torch.linalg``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_UNROLL_LIMIT = 48
+
+
+def chol(A, floor_rel=None):
+    """Lower Cholesky factor of SPD blocks.
+
+    ``floor_rel``: modified-Cholesky pivot safeguard (the reference's
+    spMODCHOLfac role, hqp/Hqp_IpSpSC.C:46-48): each pivot d^2 is clamped
+    below at ``floor_rel * max|diag(A)|`` so blocks that are PSD up to
+    roundoff factor to a nearby SPD system instead of producing NaN; the
+    caller's iterative refinement absorbs the perturbation."""
+    n = A.shape[-1]
+    if n > _UNROLL_LIMIT:
+        return torch.linalg.cholesky(A)
+    if floor_rel is not None:
+        dmax = torch.diagonal(A, dim1=-2, dim2=-1).abs().amax(dim=-1)
+        floor = floor_rel * torch.clamp(dmax, min=1e-300)
+    cols = []
+    for j in range(n):
+        v = A[..., j:, j]
+        for k in range(j):
+            v = v - cols[k][..., j - k:] * cols[k][..., j - k, None]
+        d2 = v[..., 0]
+        if floor_rel is not None:
+            d2 = torch.maximum(d2, floor)
+        d = torch.sqrt(d2)
+        cols.append(torch.cat([d[..., None], v[..., 1:] / d[..., None]],
+                              dim=-1))
+    L = torch.zeros_like(A)
+    for j in range(n):
+        L[..., j:, j] = cols[j]
+    return L
+
+
+def tri_lower_solve(L, b):
+    """Solve L x = b, L lower triangular; b is [..., n] or [..., n, m]."""
+    n = L.shape[-1]
+    if n == 0:
+        return b
+    vec = b.dim() == L.dim() - 1
+    if vec:
+        b = b[..., None]
+    if n > _UNROLL_LIMIT:
+        x = torch.linalg.solve_triangular(L, b, upper=False)
+        return x[..., 0] if vec else x
+    xs = []
+    for i in range(n):
+        v = b[..., i, :]
+        for k in range(i):
+            v = v - L[..., i, k, None] * xs[k]
+        xs.append(v / L[..., i, i, None])
+    x = torch.stack(xs, dim=-2)
+    return x[..., 0] if vec else x
+
+
+def tri_upper_solve(L, b):
+    """Solve L' x = b with L lower triangular."""
+    n = L.shape[-1]
+    if n == 0:
+        return b
+    vec = b.dim() == L.dim() - 1
+    if vec:
+        b = b[..., None]
+    if n > _UNROLL_LIMIT:
+        x = torch.linalg.solve_triangular(L.transpose(-1, -2), b,
+                                          upper=True)
+        return x[..., 0] if vec else x
+    xs = [None] * n
+    for i in reversed(range(n)):
+        v = b[..., i, :]
+        for k in range(i + 1, n):
+            v = v - L[..., k, i, None] * xs[k]
+        xs[i] = v / L[..., i, i, None]
+    x = torch.stack(xs, dim=-2)
+    return x[..., 0] if vec else x
+
+
+def cho_solve(L, b):
+    """Solve A x = b given L = chol(A)."""
+    return tri_upper_solve(L, tri_lower_solve(L, b))

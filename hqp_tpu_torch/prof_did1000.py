@@ -1,0 +1,241 @@
+"""Where the time of a DID-1000 solve goes on the card.
+
+    python -m hqp_tpu_torch.prof_did1000 [--kmax 1000] [--device cuda]
+
+Phases, each printed on lines of its own:
+  1. chained KKT factor+solve links at the point of ``bench.py``'s
+     did1000_kkt (Q = 1e-2 I, z = w = 1, L = 10), median of ``REPS``
+     with a synchronize per link: f64 with the Thomas master (two passes),
+     f64 with the CR master, f32 with the Thomas master, each with its
+     factor / solve split and the KKT residual of the last link;
+  2. the layer split of one warm SqpPowell solve (init, simulate, solve),
+     by host timers that synchronize the device on entry and exit; each
+     layer's time excludes the layers it calls;
+  3. a torch.profiler trace of one more warm solve: device busy time,
+     the device's idle share of the profiled window, kernels per IP
+     iteration, and the kernels with the most device time;
+  4. the same solve at the default QP tolerance (1e-9), which is expected
+     to end in SqpError("subiters"), with the last QP's complementarity.
+Phase 3 needs a CUDA device and is skipped with ``--device cpu``, where
+the script serves only to check itself at a small ``--kmax``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import statistics
+import subprocess
+import time
+
+import torch
+
+from hqp_tpu_torch.docp.program import Docp
+from hqp_tpu_torch.models.did import PrgDID
+from hqp_tpu_torch.qp import kkt as K_
+from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
+from hqp_tpu_torch.qp.mehrotra import Mehrotra
+from hqp_tpu_torch.sqp.powell import SqpPowell
+from hqp_tpu_torch.sqp.solver import SqpError
+from hqp_tpu_torch.utils import masked as mk
+
+#: timed links per backend, after one warm-up link
+REPS = 20
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def kkt_point(kmax, device):
+    """bench.py's build_kkt: the DID QP at its initial point with
+    Q = 1e-2 I, unit barrier data and the cold-start right-hand side."""
+    prg = PrgDID(kmax=kmax, device=device)
+    v0 = prg.setup()
+    Q0 = (torch.eye(prg.nv, dtype=torch.float64, device=prg.device)
+          * 1e-2).expand(prg.K + 1, -1, -1).clone()
+    _, qp = prg.make_qp(v0, Q=Q0)
+    mask = qp.ineq_mask()
+    ones = mk.fill(mask, 1.0)
+    rhs = (torch.where(qp.x_mask(), qp.c, 0.0), qp.eq_offsets(),
+           mk.fill(mask, 0.0), mk.fill(mask, 0.0))
+    return qp, mask, ones, rhs
+
+
+def chained_links(kmax, device):
+    qp, mask, ones, rhs = kkt_point(kmax, device)
+    dev = qp.device
+    for tag, be in [("f64 thomas", PartitionedKKT(L=10)),
+                    ("f64 thomas (2nd pass)", PartitionedKKT(L=10)),
+                    ("f64 cr", PartitionedKKT(L=10, master="cr")),
+                    ("f32 thomas", PartitionedKKT(L=10, factor_dtype="f32"))]:
+        fac_ms, sol_ms, link_ms = [], [], []
+        r1 = rhs[0]
+        for i in range(REPS + 1):
+            sync(dev)
+            t0 = time.perf_counter()
+            fac = be.factor(qp, ones, ones, mask)
+            sync(dev)
+            t1 = time.perf_counter()
+            sol = be.solve(fac, qp, ones, ones, mask, r1, *rhs[1:])
+            sync(dev)
+            t2 = time.perf_counter()
+            if i:                         # the first link is a warm-up
+                fac_ms.append((t1 - t0) * 1e3)
+                sol_ms.append((t2 - t1) * 1e3)
+                link_ms.append((t2 - t0) * 1e3)
+            last = (r1, sol)
+            # chain the links as bench.py does: the next rhs depends on
+            # this link's solution by a bump far below any tolerance
+            r1 = rhs[0] + 1e-30 * sol[0]
+        r1, sol = last
+        *_, res = K_.kkt_residual(qp, ones, ones, mask, r1, *rhs[1:], *sol)
+        print(f"[1] link {tag}: {statistics.median(link_ms):.3f} ms "
+              f"(factor {statistics.median(fac_ms):.3f}, solve "
+              f"{statistics.median(sol_ms):.3f}; median of {REPS}), "
+              f"residual {float(res):.2e}")
+
+
+class LayerTimers:
+    """Synchronizing host timers around methods; each label's time
+    excludes the time of the timed methods it calls."""
+
+    def __init__(self, device):
+        self.device = device
+        self.excl = collections.defaultdict(float)
+        self.calls = collections.Counter()
+        self._stack = []
+        self._saved = []
+
+    def wrap(self, cls, name, label):
+        fn = getattr(cls, name)
+        self._saved.append((cls, name, fn))
+
+        def timed(*a, **kw):
+            sync(self.device)
+            self._stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                sync(self.device)
+                dt = time.perf_counter() - t0
+                child = self._stack.pop()
+                self.excl[label] += dt - child
+                self.calls[label] += 1
+                if self._stack:
+                    self._stack[-1] += dt
+
+        setattr(cls, name, timed)
+
+    def restore(self):
+        for cls, name, fn in reversed(self._saved):
+            setattr(cls, name, fn)
+        self._saved.clear()
+
+
+def solve_once(kmax, device, **kw):
+    s = SqpPowell(PrgDID(kmax=kmax, device=device), max_iters=50, **kw)
+    s.init()
+    s.simulate()
+    return s, s.solve()
+
+
+def layer_split(kmax, device):
+    dev = torch.device(device)
+    solve_once(kmax, device, qp_eps=1e-7)            # warm-up
+    lt = LayerTimers(dev)
+    lt.wrap(Docp, "simulate", "simulate")
+    lt.wrap(Docp, "make_qp", "make_qp")
+    lt.wrap(Docp, "update_fbd_qp", "update_fbd_qp")
+    lt.wrap(Mehrotra, "cold_start", "IP cold start (excl. KKT)")
+    lt.wrap(Mehrotra, "step", "IP step (excl. KKT)")
+    lt.wrap(PartitionedKKT, "factor", "KKT factor")
+    lt.wrap(PartitionedKKT, "solve", "KKT solve")
+    sync(dev)
+    t0 = time.perf_counter()
+    try:
+        s, res = solve_once(kmax, device, qp_eps=1e-7)
+        sync(dev)
+    finally:
+        lt.restore()
+    wall = (time.perf_counter() - t0) * 1e3
+    print(f"[2] warm solve: {res}, {wall:.1f} ms wall, SQP {s.iter}, IP "
+          f"{s.qp_iters_total}")
+    for label, secs in sorted(lt.excl.items(), key=lambda kv: -kv[1]):
+        n = lt.calls[label]
+        print(f"[2]   {label}: {secs * 1e3:.1f} ms in {n} calls "
+              f"({secs * 1e3 / n:.2f} ms each)")
+    rest = wall - 1e3 * sum(lt.excl.values())
+    print(f"[2]   rest (SQP, BFGS, setup): {rest:.1f} ms")
+
+
+def device_trace(kmax, device, top=12):
+    from torch.profiler import ProfilerActivity, profile
+
+    solve_once(kmax, device, qp_eps=1e-7)            # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s, res = solve_once(kmax, device, qp_eps=1e-7)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:                                # union of intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kern:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    ip = max(s.qp_iters_total, 1)
+    print(f"[3] traced warm solve: {res}; device busy {busy / 1e3:.1f} ms "
+          f"of {wall_us / 1e3:.1f} ms, idle {100 * (1 - busy / wall_us):.1f}%"
+          f"; {len(kern)} device events, {len(kern) / ip:.0f} per IP "
+          f"iteration")
+    for name, (us, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:top]:
+        print(f"[3]   {us / 1e3:9.2f} ms {100 * us / max(busy, 1):5.1f}% "
+              f"{n:7d}x {name[:90]}")
+
+
+def default_eps(kmax, device):
+    t0 = time.perf_counter()
+    s = SqpPowell(PrgDID(kmax=kmax, device=device), max_iters=50)
+    s.init()
+    s.simulate()
+    try:
+        res = s.solve()
+    except SqpError as e:
+        res = f"SqpError({e.reason!r})"
+    st, mask = s.ip_state, s.qp.ineq_mask()
+    mu = float(mk.inner(st.z, st.w, mask) / mk.count(mask))
+    print(f"[4] qp_eps={s.qp_solver.eps:g}: {res}, f = {float(s.f)!r}, SQP "
+          f"{s.iter}, IP {s.qp_iters_total} (last QP {s.qp_iters_last}), "
+          f"z'w/m = {mu:.3g}, {time.perf_counter() - t0:.1f} s")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kmax", type=int, default=1000)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    if args.device == "cuda":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip())
+    chained_links(args.kmax, args.device)
+    layer_split(args.kmax, args.device)
+    if args.device == "cuda":
+        device_trace(args.kmax, args.device)
+    default_eps(args.kmax, args.device)
+
+
+if __name__ == "__main__":
+    main()

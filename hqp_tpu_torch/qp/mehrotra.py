@@ -1,0 +1,372 @@
+"""Mehrotra predictor-corrector interior-point QP solver.
+
+Port of the default path of ``hqp_tpu/qp/mehrotra.py`` (reference:
+hqp/Hqp_IpsMehrotra.C): cold start with unit (z, w) and Mehrotra's
+initial-point shift, the relative KKT test, the infeasibility / slow
+progress / blow-up aborts, the affine predictor with Mehrotra's cubic
+centering, the adaptive step length, and hot starts from snapshotted
+(z, w) with fallback to a cold start.
+
+The reference runs the iteration as one ``lax.while_loop`` on the device.
+Here the loop runs on the host; each IP iteration reads back one flag
+vector to take the step branch and one to test the loop
+(:func:`~hqp_tpu_torch.utils.sync.host`), besides the refinement tests of
+the KKT backend.  The state scalars stay tensors, as in the reference.
+
+Not ported yet: ``mod_terlaky``, ``gondzio_correctors > 0``,
+``init_method != 0`` and ``cheap_predictor`` (constructing with them
+raises ``NotImplementedError``), and the equality-only program branch.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+
+import torch
+
+from hqp_tpu_torch.utils import masked as mk
+from hqp_tpu_torch.utils.registry import modules
+from hqp_tpu_torch.utils.sync import host
+
+# result codes, aligned with hqp/Hqp_impl.h:37-46
+OPTIMAL = 0
+FEASIBLE = 1
+INFEASIBLE = 2
+SUBOPTIMAL = 3
+DEGENERATE = 4
+ITERATING = 5
+
+RESULT_STRINGS = {
+    OPTIMAL: "optimal",
+    FEASIBLE: "feasible",
+    INFEASIBLE: "infeasible",
+    SUBOPTIMAL: "suboptimal",
+    DEGENERATE: "degenerate",
+    ITERATING: "iterating",
+}
+
+
+@dataclasses.dataclass
+class IPState:
+    """Full interior-point iterate (tensors on the QP's device)."""
+
+    x: torch.Tensor
+    y: dict
+    z: object        # IneqGroups
+    w: object
+    z_hot: object
+    w_hot: object
+    iter: torch.Tensor       # int64
+    result: torch.Tensor     # int64 code
+    gap: torch.Tensor
+    test: torch.Tensor       # phi of the last step
+    alpha: torch.Tensor
+    mu0: torch.Tensor
+    norm_r0: torch.Tensor
+    phimin: torch.Tensor     # [max_iters + 1]
+
+
+class Mehrotra:
+    """Mehrotra predictor-corrector IP solver over an exchangeable backend.
+
+    Defaults as in the reference package: Mehrotra's cubic centering (not
+    the Terlaky modification) and no Gondzio correctors."""
+
+    def __init__(self, backend=None, eps=1e-9, max_iters=50, max_warm_iters=25,
+                 gammaf=0.01, init_method=0, mod_terlaky=False,
+                 gondzio_correctors=0, cheap_predictor=False):
+        if init_method != 0 or mod_terlaky or gondzio_correctors or \
+                cheap_predictor:
+            raise NotImplementedError(
+                "Mehrotra: only the default path is ported (init_method=0, "
+                "mod_terlaky=False, gondzio_correctors=0, "
+                "cheap_predictor=False)")
+        self.backend = backend
+        self.eps = eps
+        self.max_iters = max_iters
+        self.max_warm_iters = max_warm_iters
+        self.gammaf = gammaf
+
+    def with_backend(self, backend):
+        """A solver with ``backend`` bound (a copy if it differs)."""
+        if backend is self.backend:
+            return self
+        new = copy.copy(self)
+        new.backend = backend
+        return new
+
+    # -- state construction --------------------------------------------------
+
+    def _scalars(self, qp):
+        """Fresh loop scalars: iteration 0, ITERATING, phi = inf, alpha 1."""
+        dev = qp.device
+        f = dict(dtype=torch.float64, device=dev)
+        return dict(iter=torch.zeros((), dtype=torch.int64, device=dev),
+                    result=torch.full((), ITERATING, dtype=torch.int64,
+                                      device=dev),
+                    test=torch.full((), float("inf"), **f),
+                    alpha=torch.ones((), **f),
+                    phimin=torch.zeros(self.max_iters + 1, **f))
+
+    def init_state(self, qp):
+        mask = qp.ineq_mask()
+        ones = mk.fill(mask, 1.0)
+        f = dict(dtype=torch.float64, device=qp.device)
+        return IPState(
+            x=qp.zero_x(), y=mk.fill(qp.eq_offsets(), 0.0),
+            z=ones, w=ones, z_hot=ones, w_hot=ones,
+            gap=torch.zeros((), **f), mu0=torch.ones((), **f),
+            norm_r0=torch.ones((), **f), **self._scalars(qp))
+
+    @staticmethod
+    def _no_ineq(qp):
+        """Structurally no inequality rows (reference's m == 0 case)."""
+        return mk.tsize(qp.ineq_mask()) == 0
+
+    # -- cold start (Hqp_IpsMehrotra.C:209-327) ------------------------------
+
+    def cold_start(self, qp, state: IPState):
+        if self._no_ineq(qp):
+            raise NotImplementedError(
+                "Mehrotra: programs without inequality rows are not ported")
+        mask = qp.ineq_mask()
+        m = torch.clamp(mk.count(mask), min=1.0)
+        ones = mk.where(mask, mk.fill(mask, 1.0), 1.0)
+        z = w = ones
+
+        r1 = torch.where(qp.x_mask(), qp.c, 0.0)
+        r2 = mk.scale(-1.0, qp.eq_offsets())
+        r3 = mk.where(mask, mk.scale(-1.0, qp.ineq_offsets()), 0.0)
+        r4 = mk.fill(mask, 0.0)
+
+        fac = self.backend.factor(qp, z, w, mask)
+        dx, dy, dz, dw = self.backend.solve(fac, qp, z, w, mask,
+                                            r1, r2, r3, r4)
+
+        # Mehrotra's initial point shift (C:299-315)
+        dz = _unzero(dz, mask)
+        dw = _unzero(dw, mask)
+        delz = torch.clamp(-1.5 * mk.vmin(dz, mask), min=0.0)
+        delw = torch.clamp(-1.5 * mk.vmin(dw, mask), min=0.0)
+        d1 = mk.tmap(lambda a: a + delz, dz)
+        d2 = mk.tmap(lambda a: a + delw, dw)
+        gap = mk.inner(d1, d2, mask)
+        den_z = mk.total(dw, mask) + m * delw
+        delz = delz + torch.where(den_z != 0.0, 0.5 * gap / den_z, 0.0)
+        den_w = mk.total(dz, mask) + m * delz
+        delw = delw + torch.where(den_w != 0.0, 0.5 * gap / den_w, 0.0)
+        z = mk.where(mask, mk.tmap(lambda a: a + delz, dz), 1.0)
+        w = mk.where(mask, mk.tmap(lambda a: a + delw, dw), 1.0)
+
+        degen = ~(torch.isfinite(mk.norm_inf(dx)) & torch.isfinite(gap))
+        sc = self._scalars(qp)
+        sc["result"] = torch.where(degen, DEGENERATE, sc["result"])
+        return IPState(
+            x=dx, y=dy, z=z, w=w, z_hot=ones, w_hot=ones, gap=gap,
+            mu0=torch.ones_like(gap), norm_r0=torch.ones_like(gap), **sc)
+
+    def hot_start(self, qp, state: IPState):
+        """Re-use the snapshotted (z, w); Hqp_IpsMehrotra.C:330-352."""
+        return dataclasses.replace(state, z=state.z_hot, w=state.w_hot,
+                                   **self._scalars(qp))
+
+    # -- one predictor-corrector step (Hqp_IpsMehrotra.C:355-693) ------------
+
+    def step(self, qp, state: IPState) -> IPState:
+        eps = self.eps
+        mask = qp.ineq_mask()
+        m = torch.clamp(mk.count(mask), min=1.0)
+        x, y, z, w = state.x, state.y, state.z, state.w
+
+        # residuals of the KKT conditions (C:425-445)
+        Qx = qp.matvec_Q(x)
+        gap = (mk.inner(x, Qx + qp.c)
+               + mk.inner(y, qp.eq_offsets(), qp.eq_mask())
+               + mk.inner(z, qp.ineq_offsets(), mask))
+        r1 = torch.where(
+            qp.x_mask(),
+            Qx + qp.c - qp.matvec_eqT(y) - qp.matvec_ineqT(
+                mk.where(mask, z, 0.0)), 0.0)
+        r2 = mk.scale(-1.0, qp.eval_eq(x))
+        r3 = mk.where(mask, mk.sub(w, qp.eval_ineq(x)), 0.0)
+        r4 = mk.where(mask, mk.tmap(lambda a, b: -a * b, z, w), 0.0)
+        mu = mk.inner(z, w, mask) / m
+
+        norm_r = torch.maximum(
+            torch.maximum(mk.norm_inf(r1), mk.norm_inf(r2, qp.eq_mask())),
+            mk.norm_inf(r3, mask))
+        norm_data = qp.norm_data()
+
+        first = state.iter == 0
+        mu0 = torch.where(first, mu, state.mu0)
+        norm_r0 = torch.where(first, norm_r, state.norm_r0)
+
+        phi = (norm_r + gap.abs()) / norm_data
+        phimin = state.phimin.index_put((state.iter.reshape(1),),
+                                        phi.reshape(1))
+
+        # hot start snapshot while still far from the central path (C:475-478)
+        snap = phi > eps ** 0.3333
+        z_hot = mk.tmap(lambda a, b: torch.where(snap, a, b), z, state.z_hot)
+        w_hot = mk.tmap(lambda a, b: torch.where(snap, a, b), w, state.w_hot)
+
+        # termination / abort tests (C:482-519)
+        iters = torch.arange(self.max_iters + 1, device=phi.device)
+        seen = iters <= state.iter
+        pm = torch.where(seen, phimin, float("inf")).amin()
+        # never optimal at entry (iter 0): a cold start enters with zero
+        # (x, y), a hot start with the previous solution
+        optimal = (mu <= eps) & (norm_r <= eps * norm_data) \
+            & (state.iter > 0)
+        subopt = (phi > eps) & (phi >= 1.0e4 * pm)
+        seen30 = (iters >= 1) & (iters <= state.iter - 30)
+        pm30 = torch.where(seen30, phimin, float("inf")).amin()
+        slow = (state.iter >= 30) & (pm >= 0.5 * pm30)
+        blowup = (norm_r > eps * norm_data) & \
+            (norm_r / mu >= 1.0e8 * norm_r0 / mu0)
+
+        # the blow-up test sets Suboptimal but does NOT skip the step
+        # (C:513-519); the solve loop exits after this final step
+        result = torch.where(
+            optimal, OPTIMAL,
+            torch.where(subopt | slow | blowup, SUBOPTIMAL, ITERATING))
+        take_step = (~optimal) & (~subopt) & (~slow)
+
+        base = dataclasses.replace(
+            state, z_hot=z_hot, w_hot=w_hot, gap=gap, test=phi, mu0=mu0,
+            norm_r0=norm_r0, phimin=phimin, result=result)
+        if not host(take_step):
+            return base
+
+        # factorization + affine predictor (C:524-562)
+        fac = self.backend.factor(qp, z, w, mask)
+        dxa, dya, dza, dwa = self.backend.solve(
+            fac, qp, z, w, mask, r1, r2, r3, r4)
+        alpha_aff = torch.clamp(
+            torch.minimum(mk.ratio_min(z, dza, mask),
+                          mk.ratio_min(w, dwa, mask)), 0.0, 1.0)
+
+        # Mehrotra's original centering (C:578-583)
+        zp = mk.where(mask, mk.axpy(alpha_aff, dza, z), 0.0)
+        wp = mk.where(mask, mk.axpy(alpha_aff, dwa, w), 0.0)
+        mu_aff = mk.inner(zp, wp, mask) / m
+        sigma = (mu_aff / mu) ** 3.0
+        smm = sigma * mu
+        r4c = mk.where(
+            mask,
+            mk.tmap(lambda zi, wi, a, b: -(zi * wi + a * b - smm),
+                    z, w, dza, dwa), 0.0)
+        dx, dy, dz, dw = self.backend.solve(fac, qp, z, w, mask,
+                                            r1, r2, r3, r4c)
+
+        # Mehrotra's adaptive step size (C:625-669)
+        alpha = self._adaptive_alpha(z, w, dz, dw, mask, m)
+
+        x_n = x + alpha * dx
+        y_n = mk.axpy(alpha, dy, y)
+        z_n = mk.where(mask, mk.axpy(alpha, dz, z), 1.0)
+        w_n = mk.where(mask, mk.axpy(alpha, dw, w), 1.0)
+
+        mu_n = mk.inner(z_n, w_n, mask) / m
+        bad = ~(torch.isfinite(mu_n) & torch.isfinite(mk.norm_inf(dx)))
+
+        def sel(a, b):
+            return mk.tmap(lambda ai, bi: torch.where(bad, ai, bi), a, b)
+
+        return dataclasses.replace(
+            base, x=torch.where(bad, x, x_n), y=sel(y, y_n), z=sel(z, z_n),
+            w=sel(w, w_n), alpha=alpha,
+            iter=base.iter + (~bad).to(torch.int64),
+            result=torch.where(bad, DEGENERATE, base.result))
+
+    def _adaptive_alpha(self, z, w, dz, dw, mask, m):
+        """Mehrotra's adaptive stepsize heuristic (C:625-669); the groups
+        are flattened in field order, as ravel_pytree does."""
+        gammaf = self.gammaf
+        zf, wf, dzf, dwf = mk.flat(z), mk.flat(w), mk.flat(dz), mk.flat(dw)
+        mf = mk.flat(mask)
+
+        okz = mf & (dzf < 0.0)
+        ratz = torch.where(okz, -zf / torch.where(okz, dzf, -1.0), mk.BIG)
+        okw = mf & (dwf < 0.0)
+        ratw = torch.where(okw, -wf / torch.where(okw, dwf, -1.0), mk.BIG)
+        izmin = torch.argmin(ratz).reshape(1)      # first minimum
+        iwmin = torch.argmin(ratw).reshape(1)
+        zmin = ratz.gather(0, izmin)[0]
+        wmin = ratw.gather(0, iwmin)[0]
+
+        none_blocking = (zmin >= mk.BIG) & (wmin >= mk.BIG)
+        alpha = torch.clamp(torch.minimum(zmin, wmin), max=1.0)
+
+        mu_pl = torch.where(mf, (zf + alpha * dzf) * (wf + alpha * dwf),
+                            0.0).sum() / m
+
+        w_blocks = wmin <= zmin
+        ib = torch.where(w_blocks, iwmin, izmin)
+
+        def at(v):
+            return v.gather(0, ib)[0]
+
+        # at the blocking index the "other" variable's positivity decides
+        a_other = torch.where(w_blocks, at(zf) + alpha * at(dzf),
+                              at(wf) + alpha * at(dwf))
+        d_block = torch.where(w_blocks, alpha * at(dwf), alpha * at(dzf))
+        v_block = torch.where(w_blocks, at(wf), at(zf))
+        fpd = torch.where(a_other > 0.0,
+                          (gammaf * mu_pl / a_other - v_block) / d_block, 0.0)
+        alpha = torch.clamp(torch.clamp(fpd, min=1.0 - gammaf) * alpha,
+                            0.0, 1.0)
+        return torch.where(none_blocking, 1.0, alpha)
+
+    # -- full solve with hot-start fallback (C:696-733) ----------------------
+
+    def _solve_loop(self, qp, state: IPState, hot: bool, iter_cap: int):
+        """IP steps until the result leaves ITERATING, the iteration cap,
+        or (hot starts) the failure test: phi must decay at least like
+        1.2^-k and alpha stay above 1e-5 (C:707-719).  One host read per
+        iteration tests the loop.  Returns (state, hot_failed, result
+        code, iterations) with the last three as read on the host."""
+        st = state
+        test1 = torch.full((), float("inf"), dtype=torch.float64,
+                           device=qp.device)
+        fail = torch.zeros((), dtype=torch.bool, device=qp.device)
+        while True:
+            res, it, failed = host(torch.stack(
+                [st.result, st.iter, fail.to(torch.int64)]))
+            if res != ITERATING or it >= iter_cap or failed:
+                return st, bool(failed), res, it
+            st = self.step(qp, st)
+            if hot:
+                itf = st.iter.to(torch.float64)
+                test1 = torch.where(st.iter == 1, st.test, test1)
+                failn = (st.iter >= 2) & (
+                    (st.test > test1 / 1.2 ** (itf - 1.0))
+                    | (st.alpha < 1.0e-5))
+                fail = fail | failn
+
+    def solve(self, qp, state: IPState, hot: bool = False):
+        """Full solve with hot-start failure fallback (C:696-733)."""
+        fail_iters = 0
+        if hot:
+            st = self.hot_start(qp, state)
+            st, failed, res, it = self._solve_loop(
+                qp, st, True, min(self.max_warm_iters, self.max_iters))
+            if failed or res != OPTIMAL:
+                fail_iters = it
+                st = self.cold_start(qp, st)
+                st = self._solve_loop(
+                    qp, st, False, max(self.max_iters - fail_iters, 1))[0]
+        else:
+            st = self.cold_start(qp, state)
+            st = self._solve_loop(qp, st, False, self.max_iters)[0]
+        return dataclasses.replace(st, iter=st.iter + fail_iters)
+
+
+modules.register("sqp_qp_solver", "Mehrotra")(Mehrotra)
+
+
+def _unzero(t, mask):
+    """If a direction is identically zero, nudge it (C:299-302)."""
+    n = mk.norm_inf(t, mask)
+    return mk.tmap(lambda a: torch.where(n == 0.0, 1.0e-10, a), t)

@@ -1,0 +1,20 @@
+"""Counted device-to-host reads.
+
+The reference runs its interior-point loop, the refinement loop and the
+step branch on the device (``lax.while_loop``/``lax.cond``).  The port
+runs them as host loops, and each loop test reads one small tensor back
+with :func:`host`, which waits for the device.  ``COUNT`` counts those
+reads so that a run can report its host syncs per IP iteration.
+"""
+
+from __future__ import annotations
+
+#: number of :func:`host` reads since import (reset freely by callers)
+COUNT = 0
+
+
+def host(t):
+    """``t.tolist()`` -- a Python scalar for a 0-d tensor, else a list."""
+    global COUNT
+    COUNT += 1
+    return t.tolist()

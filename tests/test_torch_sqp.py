@@ -1,0 +1,252 @@
+"""The port's solve path against the JAX package, layer by layer.
+
+Each layer of the DID solve path (PartitionedKKT -> Mehrotra -> Docp /
+PrgDID -> BFGS -> SqpPowell) gets the same seeded inputs in both
+packages (handed over as numpy through ``hqp_tpu_torch.convert``) and is
+compared at a stated tolerance.  The port runs here on CPU tensors, so its
+kernel wrappers take their plain twins.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import hqp_tpu  # noqa: F401  (x64)
+import jax
+import jax.numpy as jnp
+from hqp_tpu.models.did import PrgDID as JPrgDID
+from hqp_tpu.qp.kkt_partitioned import PartitionedKKT as JPartitionedKKT
+from hqp_tpu.qp.program import IneqGroups as JIneqGroups
+from hqp_tpu.sqp.hessian import BFGS as JBFGS
+from hqp_tpu.sqp.powell import SqpPowell as JSqpPowell
+from tests.test_kkt import random_rhs, random_stage_qp, random_zw
+
+from hqp_tpu_torch import convert
+from hqp_tpu_torch.models.did import PrgDID
+from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
+from hqp_tpu_torch.qp.mehrotra import Mehrotra, RESULT_STRINGS
+from hqp_tpu_torch.sqp.hessian import BFGS
+from hqp_tpu_torch.sqp.powell import SqpPowell
+
+_G = ("bl", "bu", "gl", "gu")
+
+
+def _np(a):
+    return a.detach().numpy() if isinstance(a, torch.Tensor) else \
+        np.asarray(a)
+
+
+def _close(a, b, tol, rtol=None):
+    np.testing.assert_allclose(_np(a), _np(b), atol=tol,
+                               rtol=tol if rtol is None else rtol)
+
+
+def _kkt_inputs(K, nx, nu, mc, seed):
+    qp = random_stage_qp(K, nx, nu, mc, seed=seed)
+    z, w, mask = random_zw(qp, seed=1)
+    r = random_rhs(qp, seed=2)
+    port = (convert.stage_qp(qp), convert.ineq(z), convert.ineq(w),
+            convert.ineq(mask), convert.tensor(r[0]), convert.eq(r[1]),
+            convert.ineq(r[2]), convert.ineq(r[3]))
+    return (qp, z, w, mask, *r), port
+
+
+def _jax_kkt(backend, qp, z, w, mask, *r):
+    """The reference backend's factor + solve, jitted (one compile per
+    shape instead of one dispatch per op)."""
+    def f(qp, z, w, mask, *r):
+        return backend.solve(backend.factor(qp, z, w, mask), qp, z, w, mask,
+                             *r)
+    return jax.jit(f)(qp, z, w, mask, *r)
+
+
+def _compare_kkt(jax_sol, port_sol, tol):
+    (dxj, dyj, dzj, dwj), (dxt, dyt, dzt, dwt) = jax_sol, port_sol
+    _close(dxt, dxj, tol)
+    for k in ("dyn", "fix"):
+        _close(dyt[k], dyj[k], tol)
+    for g in _G:
+        _close(getattr(dzt, g), getattr(dzj, g), tol)
+        _close(getattr(dwt, g), getattr(dwj, g), tol)
+
+
+@pytest.mark.parametrize("K,nx,nu,mc,L", [
+    (8, 3, 2, 2, 4), (12, 2, 1, 1, 3), (6, 2, 2, 0, 6), (5, 3, 1, 1, 1),
+    (10, 2, 1, 0, 4)])
+def test_partitioned_kkt_matches_reference_f64(K, nx, nu, mc, L):
+    """f64 factors: the reference inverts the interiors with
+    jnp.linalg.inv and reduces the master by CR, the port through the K1
+    and K2 twins; both are refined to 1e-10, so they agree at 1e-8."""
+    (qp, z, w, mask, *r), (tqp, tz, tw, tmask, *tr) = _kkt_inputs(
+        K, nx, nu, mc, seed=K + L)
+    ref = _jax_kkt(JPartitionedKKT(L=L), qp, z, w, mask, *r)
+    tb = PartitionedKKT(L=L)
+    out = tb.solve(tb.factor(tqp, tz, tw, tmask), tqp, tz, tw, tmask, *tr)
+    _compare_kkt(ref, out, 1e-8)
+    # master="cr" keeps the reference's f64 route
+    cb = PartitionedKKT(L=L, master="cr")
+    out_cr = cb.solve(cb.factor(tqp, tz, tw, tmask), tqp, tz, tw, tmask,
+                      *tr)
+    _compare_kkt(ref, out_cr, 1e-8)
+
+
+def test_partitioned_kkt_matches_reference_f32():
+    """f32 factors (K1/K2 at f32 + f64 refinement) against the
+    reference's f32 path (Pallas kernels in interpret mode).  The port
+    refines the master with the instance's 4 inner rounds where the
+    reference takes the backend-global 1 round on a CPU host, so the two
+    agree at the refinement tolerance, not bitwise."""
+    (qp, z, w, mask, *r), (tqp, tz, tw, tmask, *tr) = _kkt_inputs(
+        10, 2, 1, 1, seed=3)
+    ref = _jax_kkt(JPartitionedKKT(L=5, factor_dtype="f32"), qp, z, w, mask,
+                   *r)
+    tb = PartitionedKKT(L=5, factor_dtype="f32")
+    fac = tb.factor(tqp, tz, tw, tmask)
+    assert fac.Minv.dtype == torch.float32
+    assert fac.master[3].dtype == torch.float32
+    out = tb.solve(fac, tqp, tz, tw, tmask, *tr)
+    _compare_kkt(ref, out, 2e-5)
+
+
+# -- Docp / PrgDID ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kmax,cns", [(12, True), (8, False)])
+def test_docp_did_matches_reference(kmax, cns):
+    jp, tp = JPrgDID(kmax=kmax, with_cns=cns), PrgDID(kmax=kmax,
+                                                      with_cns=cns)
+    x0j, x0t = jp.setup(), tp.setup()
+    _close(x0t, x0j, 0.0)
+    rng = np.random.default_rng(kmax)
+    v = np.asarray(x0j) + 0.1 * rng.standard_normal(x0j.shape)
+    vj, vt = jnp.asarray(v), convert.tensor(v)
+    for a, b in zip(tp.eval_vals(vt), jp.eval_vals(vj)):
+        _close(a, b, 1e-12)
+    for a, b in zip(tp.eval_derivs(vt), jp.eval_derivs(vj)):
+        _close(a, b, 1e-12)
+    _close(tp.simulate(vt), jp.simulate(vj), 1e-12)
+
+    fj, qpj = jp.make_qp(vj)
+    ft, qpt = tp.make_qp(vt)
+    _close(ft, fj, 1e-12)
+    for name in ("c", "A", "b", "lb", "ub", "C", "d_lo", "d_up",
+                 "var_mask", "con_mask"):
+        _close(getattr(qpt, name), getattr(qpj, name), 1e-12)
+
+    y = {"dyn": rng.standard_normal((kmax, 2)),
+         "fix": rng.standard_normal(v.shape)}
+    mask = qpj.ineq_mask()
+    z = {g: rng.random(getattr(mask, g).shape) for g in _G}
+    gj = jp.eval_grd_L(vj, {k: jnp.asarray(a) for k, a in y.items()},
+                       JIneqGroups(**{g: jnp.asarray(a)
+                                      for g, a in z.items()}))
+    gt = tp.eval_grd_L(vt, convert.eq(y), convert.ineq(z))
+    _close(gt, gj, 1e-12)
+
+
+def test_bfgs_update_matches_reference():
+    """One damped block BFGS update with eigenvalue control; the blocks
+    are built so that some are damped and some need the eigen shift."""
+    rng = np.random.default_rng(7)
+    B, nb = 9, 3
+    X = rng.standard_normal((B, nb, nb))
+    Q = X @ np.swapaxes(X, 1, 2) + 0.1 * np.eye(nb)
+    s = rng.standard_normal((B, nb))
+    u = rng.standard_normal((B, nb))
+    u[:3] = -u[:3]                                   # negative curvature
+    s[4] = 1e-5 * s[4]                               # tiny step: eigen shift
+    for alpha in (1.0, 0.3):
+        ref = JBFGS().update(jnp.asarray(Q), jnp.asarray(s), jnp.asarray(u),
+                             alpha)
+        out = BFGS().update(convert.tensor(Q), convert.tensor(s),
+                            convert.tensor(u), alpha)
+        _close(out, ref, 1e-12)
+    ref = JBFGS(gamma=-0.2).update(jnp.asarray(Q), jnp.asarray(s),
+                                   jnp.asarray(u), 0.5)
+    out = BFGS(gamma=-0.2).update(convert.tensor(Q), convert.tensor(s),
+                                  convert.tensor(u), 0.5)
+    _close(out, ref, 1e-12)
+
+
+# -- Mehrotra and the whole slice on DID-30 (no path constraint) -----------------
+
+
+@pytest.fixture(scope="module")
+def did30():
+    """Both packages' SqpPowell on PrgDID(kmax=30, with_cns=False), plus
+    the first QP each built (qp_update at iteration 0 is deterministic and
+    is repeated by solve())."""
+    js = JSqpPowell(JPrgDID(kmax=30, with_cns=False), max_iters=50)
+    js.init()
+    js.qp_update()
+    jqp0, jst0 = js.qp, js.ip_state
+    jres = js.solve()
+
+    ts = SqpPowell(PrgDID(kmax=30, with_cns=False), max_iters=50)
+    ts.init()
+    tres = ts.solve()
+    return dict(js=js, jres=jres, jqp0=jqp0, jst0=jst0, ts=ts, tres=tres)
+
+
+def test_mehrotra_first_qp_matches_reference(did30):
+    """One cold Mehrotra solve of the same first QP: same result code and
+    iteration count, x/y/z at 1e-7 (the IP tolerance is 1e-9 relative)."""
+    js = did30["js"]
+    ref = js.qp_solver.solve(did30["jqp0"], did30["jst0"])
+    qp = convert.stage_qp(did30["jqp0"])
+    m = Mehrotra(eps=1e-9, max_iters=50).with_backend(PartitionedKKT())
+    out = m.solve(qp, m.init_state(qp))
+    assert int(out.result) == int(ref.result) == 0
+    assert int(out.iter) == int(ref.iter)
+    _close(out.x, ref.x, 1e-7)
+    for k in ("dyn", "fix"):
+        _close(out.y[k], ref.y[k], 1e-7)
+    for g in _G:
+        _close(getattr(out.z, g), getattr(ref.z, g), 1e-7)
+
+
+def test_sqp_did30_matches_reference(did30):
+    js, ts = did30["js"], did30["ts"]
+    assert did30["jres"] == did30["tres"] == "optimal"
+    assert ts.iter == js.iter
+    assert ts.qp_iters_total == js.qp_iters_total
+    _close(float(ts.f), float(js.f), 0.0, rtol=1e-9)
+    _close(ts.x, js.x, 1e-6)
+    assert RESULT_STRINGS[ts.status] == "optimal"
+
+
+def test_sqp_did60_oracle():
+    """PrgDID(kmax=60) with its path constraint: the SLSQP-validated
+    objective of tests/test_sqp_did.py."""
+    s = SqpPowell(PrgDID(kmax=60), max_iters=50)
+    s.init()
+    assert s.solve() == "optimal"
+    assert s.norm_inf < s.eps
+    x = s.x.numpy()
+    np.testing.assert_allclose(x[0, :2], [1.0, 0.0], atol=1e-5)
+    np.testing.assert_allclose(x[-1, :2], [-1.0, 0.0], atol=1e-5)
+    np.testing.assert_allclose(float(s.f), 98.4, rtol=1e-6)
+
+
+def test_cuda_device_refused_without_card(monkeypatch):
+    """Asking for the card where there is none raises; nothing carries on
+    on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        PrgDID(kmax=10, device="cuda")
+
+
+def test_port_imports_no_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = root
+    subprocess.run(
+        [sys.executable, "-c",
+         "import sys, hqp_tpu_torch, hqp_tpu_torch.sqp.powell, "
+         "hqp_tpu_torch.models.did, hqp_tpu_torch.convert; "
+         "assert 'jax' not in sys.modules, 'jax imported'"],
+        check=True, env=env, cwd=root, timeout=120)
