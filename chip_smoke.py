@@ -6,10 +6,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   1. device and toolchain: nvidia-smi name and power limit, torch, CUDA,
      nvcc versions; exits at once without a CUDA device;
   2. nvcc build of hqp_tpu_torch/csrc into build/hqp_tpu_torch/;
-  3. kernel K1 (batched pivoted Gauss-Jordan) against its plain twin;
-  4. kernel K2 (batched block-Thomas) against its plain twin;
-  5. kernel and plain times at the main path's shapes (CUDA events,
-     median of 20);
+  3. kernel K1 (batched pivoted Gauss-Jordan) against its plain twin, at
+     the main path's shape and at edge shapes (s = 124, P = 1);
+  4. kernel K2 (batched block-Thomas) against its plain twin, at the main
+     path's shape and at edge shapes (N = n = 1; n = 8; a system large
+     enough to stream through the kernel's chunk ring);
+  5. at the main path's shapes: each kernel's time per launch (CUDA events
+     around 50 back-to-back launches, median of 5 such runs), its mean
+     device time per launch from a torch.profiler trace of 50 launches,
+     its single-launch event time (median of 20, the measure of earlier
+     runs), its plain twin's time, its library yardstick's time (one torch
+     call the port never makes) and its bound from bytes and FLOPs;
   6. SqpPowell(PrgDID(kmax=60)) on the card: optimal at 98.4;
   7. SqpPowell(PrgDID(kmax=1000)) on the card, init/simulate/solve cold
      then warm: optimal at the reference objective, with both kernels'
@@ -33,6 +40,15 @@ import torch
 REF_F_DID1000 = 88.91363105840026
 #: bench.py's acceptance window for the DID-1000 objective
 BENCH_F_DID1000, BENCH_TOL = 88.9064, 1e-2
+#: DID-1000's IP iterations (the reference's count) and the port's K1 and
+#: K2 launches in one solve: one K1 launch per factorization, about 40 K2
+#: launches per IP iteration
+DID1000_COUNTS = (27, 28, 1074)
+#: the card's published peaks (NVIDIA H100 SXM data sheet): memory rate
+#: in bytes/s and the dense FP64 tensor-core rate in FLOP/s (FP32 outside
+#: the tensor cores runs at the same 67 TFLOP/s)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = {torch.float64: 67e12, torch.float32: 67e12}
 #: the QP tolerance of every recorded reference DID-1000 run: with the
 #: default 1e-9 the f64 interior point stalls at mu ~ 3.6e-9 on
 #: SIGMA_CAP-capped rows and the SQP raises "subiters", in the reference
@@ -56,8 +72,9 @@ def rel_err(out, ref):
     return float((out - ref).abs().max() / ref.abs().max())
 
 
-def median_ms(fn, reps=20):
-    """Median of ``reps`` CUDA-event timings of fn() after one warm-up."""
+def median_ms(fn, reps=20, runs=1):
+    """Median over ``reps`` CUDA-event timings of ``runs`` back-to-back
+    calls of fn(), divided by ``runs``, after one warm-up."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -65,16 +82,43 @@ def median_ms(fn, reps=20):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(runs):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / runs)
     return statistics.median(times)
+
+
+def device_ms(fn, kernel, reps=50):
+    """Mean device time of the kernel whose name contains ``kernel`` over
+    ``reps`` back-to-back calls of fn(), from a torch.profiler trace; None
+    if the trace holds no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in e.name]
+    return statistics.mean(us) / 1e3 if us else None
+
+
+def bound(nbytes, flops, dtype):
+    """(ms, side): the least time of the card for this work."""
+    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S[dtype]
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
 def gj_inputs(P, s, b, dtype, seed, swap=False):
     rng = np.random.default_rng(seed)
-    M = rng.standard_normal((P, s, s)) + 4.0 * np.eye(s)
+    # a diagonal shift that keeps the largest tiles well conditioned
+    shift = 4.0 if s < 100 else 3.0 * np.sqrt(s)
+    M = rng.standard_normal((P, s, s)) + shift * np.eye(s)
     if swap:
         M[:, 0, 0] = 0.0       # forces a row interchange at step 0
     B = rng.standard_normal((P, s, b))
@@ -129,7 +173,9 @@ def main():
              (100, 48, 4, torch.float32, False),
              (4, 73, 4, torch.float64, False),
              (11, 17, 4, torch.float64, True),
-             (11, 17, 4, torch.float32, True)]
+             (11, 17, 4, torch.float32, True),
+             (2, 124, 4, torch.float64, True),
+             (1, 48, 4, torch.float64, True)]
     for i, (P, s, b, dt, swap) in enumerate(cases):
         M, B = gj_inputs(P, s, b, dt, seed=i, swap=swap)
         out = gj_cuda.interior_factor(M, B)
@@ -149,30 +195,81 @@ def main():
     # -- 4. K2 against its plain twin -------------------------------------
     for i, (Bn, N, n, dt) in enumerate([
             (1, 101, 2, torch.float64), (1, 101, 2, torch.float32),
-            (3, 101, 6, torch.float64), (3, 101, 6, torch.float32)]):
+            (3, 101, 6, torch.float64), (3, 101, 6, torch.float32),
+            (1, 1, 1, torch.float64), (1, 1, 1, torch.float32),
+            (1, 101, 8, torch.float64), (1, 101, 8, torch.float32),
+            (2, 600, 6, torch.float64), (2, 600, 6, torch.float32)]):
         D, U, r = thomas_inputs(Bn, N, n, dt, seed=10 + i)
         x = thomas_cuda.thomas_solve(D, U, r)
         xr = thomas_cuda.thomas_solve_plain(D, U, r)
         torch.cuda.synchronize()
         e = rel_err(x, xr)
-        print(f"[4] K2 B={Bn} N={N} n={n} {str(dt)[6:]}: rel err {e:.2e}")
+        chunked = thomas_cuda.plan(N, n, dt) == 2
+        print(f"[4] K2 B={Bn} N={N} n={n} {str(dt)[6:]}: rel err {e:.2e}, "
+              f"{'chunk ring' if chunked else 'staged whole'}")
+        if (N, n, dt) == (600, 6, torch.float64):
+            check(chunked, "N=600, n=6, f64 does not take the chunk ring")
         check(e <= tol[dt], f"K2 disagrees with its twin ({e})")
         if (Bn, n, dt) == (1, 2, torch.float64):
             errs["thomas"] = float((x - xr).abs().max())
 
     # -- 5. times at the main path's shapes --------------------------------
-    times = {}
-    M, B = gj_inputs(100, 48, 4, torch.float64, seed=0)
-    times["gj"] = (median_ms(lambda: gj_cuda.interior_factor(M, B)),
-                   median_ms(lambda: gj_cuda.interior_factor_plain(M, B)))
-    D, U, r = thomas_inputs(1, 101, 2, torch.float64, seed=10)
-    D, U, r = D[0], U[0], r[0]
-    times["thomas"] = (median_ms(lambda: thomas_cuda.thomas_solve(D, U, r)),
-                       median_ms(lambda: thomas_cuda.thomas_solve_plain(
-                           D, U, r)))
-    for k, (kt, pt) in times.items():
-        print(f"[5] {k}: kernel {kt:.4f} ms, plain {pt:.4f} ms "
-              f"(median of 20, f64, main-path shape) on {smi}")
+    f64 = torch.float64
+    P, sz, bz = 100, 48, 4
+    M, B = gj_inputs(P, sz, bz, f64, seed=0)
+    D, U, r = (a[0] for a in thomas_inputs(1, 101, 2, f64, seed=10))
+    N, n = D.shape[0], D.shape[-1]
+    T = torch.zeros((N * n, N * n), dtype=f64, device="cuda")
+    for i in range(N):
+        T[i * n:(i + 1) * n, i * n:(i + 1) * n] = D[i]
+    for i in range(N - 1):
+        T[i * n:(i + 1) * n, (i + 1) * n:(i + 2) * n] = U[i]
+        T[(i + 1) * n:(i + 2) * n, i * n:(i + 1) * n] = U[i].T
+    rv = r.reshape(-1, 1)
+    gj_run = lambda: gj_cuda.interior_factor(M, B)            # noqa: E731
+    th_run = lambda: thomas_cuda.thomas_solve(D, U, r)        # noqa: E731
+    check(rel_err(torch.linalg.solve(T, rv).reshape(N, n), th_run()) < 1e-10,
+          "K2's library yardstick solves another system")
+    # bytes: each input read once, each output written once; FLOPs: GJ
+    # inverse 2 s^3, W 2 s^2 b, Schur 2 s b^2; block Thomas per block
+    # 2n^3 (U'G) + 4n^3 (inverse) + 2n^3 (CU) + 6n^2 (vectors) + n
+    el = torch.finfo(f64).bits // 8
+    gj_bound = bound(P * (2 * sz * sz + 2 * sz * bz + bz * bz) * el,
+                     P * (2 * sz ** 3 + 2 * sz * sz * bz + 2 * sz * bz * bz),
+                     f64)
+    th_bound = bound((D.numel() + U.numel() + 2 * r.numel()) * el,
+                     N * (8 * n ** 3 + 6 * n * n + n), f64)
+    times = {
+        "gj": dict(
+            ms=median_ms(gj_run, reps=5, runs=50),
+            device_ms=device_ms(gj_run, "gj_interior_kernel"),
+            single_ms=median_ms(gj_run),
+            plain_ms=median_ms(lambda: gj_cuda.interior_factor_plain(M, B),
+                               reps=5),
+            library_ms=median_ms(lambda: torch.linalg.inv(M), reps=5,
+                                 runs=50),
+            bound=gj_bound),
+        "thomas": dict(
+            ms=median_ms(th_run, reps=5, runs=50),
+            device_ms=device_ms(th_run, "thomas_kernel"),
+            single_ms=median_ms(th_run),
+            plain_ms=median_ms(
+                lambda: thomas_cuda.thomas_solve_plain(D, U, r), reps=5),
+            library_ms=median_ms(lambda: torch.linalg.solve(T, rv), reps=5,
+                                 runs=50),
+            bound=th_bound)}
+    for k, t in times.items():
+        dev = "not measured" if t["device_ms"] is None else \
+            f"{t['device_ms']:.4f} ms"
+        print(f"[5] {k}: kernel {t['ms']:.4f} ms per launch (50 "
+              f"back-to-back, median of 5), device {dev} per launch "
+              f"(profiler, 50 launches), single launch {t['single_ms']:.4f} "
+              f"ms (median of 20); plain {t['plain_ms']:.4f} ms; library "
+              f"{t['library_ms']:.4f} ms; bound {t['bound'][0]:.3e} ms "
+              f"({t['bound'][1]}); f64, main-path shape, on {smi}")
+    print("[5] library yardsticks: K1 torch.linalg.inv on [100, 48, 48] "
+          "(Minv only, 92% of K1's FLOPs); K2 torch.linalg.solve on the "
+          "assembled dense [202, 202] system")
 
     # -- 6. DID-60 ----------------------------------------------------------
     s = SqpPowell(PrgDID(kmax=60, device="cuda"), max_iters=50)
@@ -213,23 +310,26 @@ def main():
               f"DID-1000 objective {f} vs reference {REF_F_DID1000}")
         check(launches["gj"] > 0 and launches["thomas"] > 0,
               f"main path skipped a kernel: {launches}")
+        check((ip, launches["gj"], launches["thomas"]) == DID1000_COUNTS,
+              f"DID-1000 IP iterations and launches {ip}, {launches} vs "
+              f"{DID1000_COUNTS}")
         return launches
 
     launches = did1000("cold")
     did1000("warm")
 
-    kernels = [
-        {"name": "gj_interior", "route": "cuda",
-         "source": "hqp_tpu_torch/csrc/gj_interior.cu",
-         "replaces": "hqp_tpu/ops/gj_pallas.py:138",
-         "launches": launches["gj"], "max_abs_err": errs["gj"],
-         "ms": times["gj"][0], "plain_ms": times["gj"][1]},
-        {"name": "thomas", "route": "cuda",
-         "source": "hqp_tpu_torch/csrc/thomas.cu",
-         "replaces": "hqp_tpu/ops/thomas_pallas.py:128",
-         "launches": launches["thomas"], "max_abs_err": errs["thomas"],
-         "ms": times["thomas"][0], "plain_ms": times["thomas"][1]},
-    ]
+    def row(key, name, replaces):
+        t = times[key]
+        return {"name": name, "route": "cuda",
+                "source": f"hqp_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": errs[key], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+                "device_ms": t["device_ms"], "single_ms": t["single_ms"]}
+
+    kernels = [row("gj", "gj_interior", "hqp_tpu/ops/gj_pallas.py:138"),
+               row("thomas", "thomas", "hqp_tpu/ops/thomas_pallas.py:128")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,167 +8,344 @@
 // with the TPU kernel's pivot rule: at step k the pivot row is the FIRST
 // row i >= k with the largest |A[i, k]| (lowest index on ties; NaN never
 // wins), so the kernel and its plain twin (ops/gj_cuda.py) take the same
-// pivot sequence.
+// pivot sequence.  The elimination rounds as the twin does (a product,
+// then a difference, never fused), so the two agree to the last bit
+// before W and Schur.
 //
 // What bounds it on an H100: latency, not bytes or FLOPs.  The DID-1000
-// factor has P = 100 matrices of s = 48 (1.8 MB in f64 in and out, 2*s^3 =
-// 0.2 MFLOP each), so the work is one wave of 100 blocks on 132 SMs and the
-// time is the s dependent elimination steps, each a few shared-memory
-// passes separated by barriers.
+// factor has P = 100 matrices of s = 48 (4.0 MB in f64 in and out, 1.2 us
+// at 3.35 TB/s; 0.24 MFLOP each), so the work is one wave of 100 blocks on
+// 132 SMs and the time is the s dependent elimination steps.  Tensor cores
+// do not pay: one matrix is a quarter MFLOP, Hopper has no f64 wgmma, and
+// mma.sync's f64 tiles would not shorten the chain of s steps.
 //
-// Design: one thread block per matrix; the matrix lives in shared memory
-// for the whole elimination and is inverted IN PLACE (row interchanges
-// recorded, columns unpermuted at the end), so one s x s tile is all the
-// shared memory it needs: s^2 * 8 bytes in f64 (18 KB at s = 48, 43 KB at
-// s = 73, 123 KB at s = 124).  The two-buffer [A | M] form of the TPU
-// kernel would need twice that.  Tiles above 48 KB use dynamic shared
-// memory after cudaFuncSetAttribute; the wrapper refuses s past what fits
-// in 227 KB.  W and Schur are computed in the same launch from the inverse
-// in shared memory (W goes to global memory and is read back after a
-// barrier, which makes the block's global writes visible to itself).
+// Design: one thread block per matrix; one barrier per step.
+// - The matrix lives in registers during the elimination: thread (row
+//   group rg, column lane cl) owns rows rg + 16 r and columns cl + 16 c
+//   (N x N entries, N = ceil(s / 16), a template parameter so that the
+//   loops unroll and need no division).  Shared memory carries only what
+//   a step exchanges: the pivot row, column k, the pivot candidates.
+// - No row swap.  Rows stay where they were loaded; each thread keeps the
+//   logical positions of its rows, and the output is read out through
+//   them: Minv[i][j] = a[perm[i]][pos[j]].
+// - The next pivot is found during the current step: the owners of column
+//   k+1 track the first max over their unpivoted rows, a shuffle combines
+//   a warp's halves, and the warp publishes its candidate together with
+//   the candidate's whole row (one half-warp holds it).  After the
+//   barrier every thread reduces the 8 candidates by a tree and reads the
+//   winner's row: no second barrier.
+// - Every entry takes the same instructions: the pivot row and column k
+//   are selects, not branches.
+// - The tile and MIB are staged by 16-byte cp.async copies.  W is computed
+//   from the inverse in shared memory into shared memory, and Schur from
+//   there.
+// Shared memory: s^2 + 2 s b + 18 s values and 2 s ints: 29 KB at s = 48,
+// 147 KB at s = 124 (b = 4, f64).  Above 48 KB it is dynamic shared memory
+// after cudaFuncSetAttribute; the wrapper refuses what does not fit.
 // Kernels launch on the caller's stream and allocate nothing.
 
 #include <cuda_runtime.h>
 
+#include <climits>
+
+#include "staging.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kCols = 16;                   // column lanes
+constexpr int kRows = kThreads / kCols;     // row groups
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+
+struct Layout {
+  size_t a, B, col, row, W, cand, pos, perm, total;
+};
+
+// a warp's pivot candidate: |value| (NaN ranks -1), logical row, physical
+// row, and the signed value
+template <typename T>
+struct Cand {
+  T v;
+  int p, q;
+  T x;
+};
 
 template <typename T>
-__device__ __forceinline__ void swap_vals(T& a, T& b) {
-  T t = a;
-  a = b;
-  b = t;
+__host__ __device__ Layout layout(int s, int b) {
+  Layout L;
+  L.a = 0;
+  L.B = L.a + hqp::stage_bytes<T>((size_t)s * s);
+  L.col = L.B + hqp::stage_bytes<T>((size_t)s * b);
+  L.row = L.col + hqp::round16(2 * (size_t)s * sizeof(T));
+  L.W = L.row + hqp::round16(2 * kWarps * (size_t)s * sizeof(T));
+  L.cand = L.W + hqp::round16((size_t)s * b * sizeof(T));
+  L.pos = L.cand + hqp::round16(2 * kWarps * sizeof(Cand<T>));
+  L.perm = L.pos + hqp::round16((size_t)s * sizeof(int));
+  L.total = L.perm + hqp::round16((size_t)s * sizeof(int));
+  return L;
+}
+
+// Keep o if it beats c: larger |value|, or the same at a lower logical
+// row; true if it did.
+template <typename T>
+__device__ __forceinline__ bool better(const Cand<T>& o, Cand<T>& c) {
+  const bool b = o.v > c.v || (o.v == c.v && o.p < c.p);
+  if (b) c = o;
+  return b;
+}
+
+// |x| as a pivot candidate; NaN ranks below every number
+template <typename T>
+__device__ __forceinline__ T rank(T x) {
+  const T v = x < T(0) ? -x : x;
+  return v >= T(0) ? v : T(-1);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ Cand<T> shfl(const Cand<T>& c, int lane) {
+  return {__shfl_sync(kFull, c.v, lane), __shfl_sync(kFull, c.p, lane),
+          __shfl_sync(kFull, c.q, lane), __shfl_sync(kFull, c.x, lane)};
+}
+
+// N: rows and columns a thread owns, ceil(s / 16)
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads, 1)
 gj_interior_kernel(const T* __restrict__ MII, const T* __restrict__ MIB,
                    T* __restrict__ Minv, T* __restrict__ W,
                    T* __restrict__ Schur, int s, int b) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* a = reinterpret_cast<T*>(smem);      // [s, s] working matrix
-  T* col = a + s * s;                      // [s] column k before elimination
-  int* piv = reinterpret_cast<int*>(col + s);  // [s] pivot row of step k
-
+  const Layout L = layout<T>(s, b);
   const long m = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int ss = s * s;
-  const T* A0 = MII + m * ss;
-  const T* B0 = MIB + m * (long)s * b;
-  T* Mo = Minv + m * ss;
-  T* Wo = W + m * (long)s * b;
-  T* So = Schur + m * (long)b * b;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cl = tid % kCols, rg = tid / kCols;
 
-  for (int e = tid; e < ss; e += kThreads) a[e] = A0[e];
+  T* a = hqp::stage(smem + L.a, MII + m * s * s, (size_t)s * s, tid,
+                    kThreads);                     // [s, s] physical rows
+  const T* Bs = hqp::stage(smem + L.B, MIB + m * s * b, (size_t)s * b, tid,
+                           kThreads);              // [s, b]
+  hqp::cp_async_commit();
+  T* colbuf = reinterpret_cast<T*>(smem + L.col);  // [2][s] column k
+  T* rowbuf = reinterpret_cast<T*>(smem + L.row);  // [2][kWarps][s]
+  T* Ws = reinterpret_cast<T*>(smem + L.W);        // [s, b]
+  Cand<T>* cand = reinterpret_cast<Cand<T>*>(smem + L.cand);  // [2][kWarps]
+  int* pos = reinterpret_cast<int*>(smem + L.pos);    // row -> logical
+  int* perm = reinterpret_cast<int*>(smem + L.perm);  // logical -> row
+
+  hqp::cp_async_wait<0>();
+  __syncthreads();
+  // this thread's entries, in registers for the whole elimination:
+  // rows rg + kRows r, columns cl + kCols c; and the rows' logical
+  // positions
+  T x[N][N];
+  int lp[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const int q = rg + kRows * r;
+    lp[r] = q;
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      const int j = cl + kCols * c;
+      x[r][c] = q < s && j < s ? a[q * s + j] : T(0);
+    }
+  }
+
+  // Publish column j (j / kCols = cj, uniform) for step j: its copy, and
+  // the warp's best candidate with that candidate's whole row (one
+  // half-warp holds it), so that the step after the barrier needs no
+  // second one.  `pr` (the current pivot row) is no candidate.
+  auto publish = [&](int buf, int j, int pr) {
+    const int cj = j / kCols;
+    Cand<T> best = {T(-2), INT_MAX, 0, T(0)};
+    if (cl == j % kCols)
+#pragma unroll
+      for (int r = 0; r < N; ++r) {
+        const int q = rg + kRows * r;
+        T v = x[r][0];
+#pragma unroll
+        for (int c = 1; c < N; ++c) v = c == cj ? x[r][c] : v;
+        if (q < s) {
+          colbuf[buf * s + q] = v;
+          if (q != pr && lp[r] >= j) better({rank(v), lp[r], q, v}, best);
+        }
+      }
+    better(shfl(best, lane ^ 16), best);
+    best = shfl(best, j % kCols);
+    if (lane == j % kCols) cand[buf * kWarps + warp] = best;
+    if (rg == best.q % kRows) {
+      const int rq = best.q / kRows;
+      T* out = rowbuf + (buf * kWarps + warp) * s;
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const int jj = cl + kCols * c;
+        T v = x[0][c];
+#pragma unroll
+        for (int r = 1; r < N; ++r) v = r == rq ? x[r][c] : v;
+        if (jj < s) out[jj] = v;
+      }
+    }
+  };
+
+  publish(0, 0, -1);
   __syncthreads();
 
   for (int k = 0; k < s; ++k) {
-    // pivot search in column k over rows >= k by warp 0: each lane scans
-    // its rows in increasing order keeping strict improvements (so the
-    // first max per lane), then the shuffle tree prefers the lower row on
-    // ties -- the first max overall
-    if (tid < 32) {
-      T bv = T(-2);
-      int bi = s;
-      for (int i = k + tid; i < s; i += 32) {
-        const T x = a[i * s + k];
-        T v = x < T(0) ? -x : x;
-        if (!(v >= T(0))) v = T(-1);  // NaN
-        if (v > bv) {
-          bv = v;
-          bi = i;
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        T ov = __shfl_down_sync(0xffffffffu, bv, off);
-        int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        if (ov > bv || (ov == bv && oi < bi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      if (tid == 0) piv[k] = bi;
+    const int cur = k & 1, nxt = cur ^ 1;
+    // the pivot: the best of the warps' candidates, by a tree
+    Cand<T> cw[kWarps];
+    int ww[kWarps];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      cw[w] = cand[cur * kWarps + w];
+      ww[w] = w;
     }
-    __syncthreads();
-    const int p = piv[k];
-    if (p != k)
-      for (int j = tid; j < s; j += kThreads)
-        swap_vals(a[k * s + j], a[p * s + j]);
-    __syncthreads();
-
-    const T pinv = T(1) / a[k * s + k];
-    for (int i = tid; i < s; i += kThreads) col[i] = a[i * s + k];
-    __syncthreads();
-    // row k scaled by 1/pivot; its column-k slot takes the inverse's entry
-    for (int j = tid; j < s; j += kThreads)
-      a[k * s + j] = (j == k) ? pinv : a[k * s + j] * pinv;
-    __syncthreads();
-    // eliminate column k from every other row
-    for (int e = tid; e < ss; e += kThreads) {
-      const int i = e / s;
-      if (i == k) continue;
-      const int j = e - i * s;
-      const T f = col[i];
-      a[e] = (j == k) ? -f * pinv : a[e] - f * a[k * s + j];
+#pragma unroll
+    for (int h = kWarps / 2; h > 0; h /= 2)
+#pragma unroll
+      for (int w = 0; w < h; ++w)
+        if (better(cw[w + h], cw[w])) ww[w] = ww[w + h];
+    const int pp = cw[0].p, pr = cw[0].q;
+    const T pinv = T(1) / cw[0].x;
+    const T* prow = rowbuf + (cur * kWarps + ww[0]) * s;
+    const T* colk = colbuf + cur * s;
+    // row k scaled by 1/pivot (its column-k entry: 1/pivot), and column k
+    // eliminated from every other row; no branch per entry
+    T rk[N], cq[N];
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      const int j = cl + kCols * c;
+      rk[c] = j == k ? pinv : mul_rn(prow[min(j, s - 1)], pinv);
     }
+#pragma unroll
+    for (int r = 0; r < N; ++r) cq[r] = colk[min(rg + kRows * r, s - 1)];
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      const int q = rg + kRows * r;
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const int j = cl + kCols * c;
+        const T v = j == k ? mul_rn(-cq[r], pinv)
+                           : sub_rn(x[r][c], mul_rn(cq[r], rk[c]));
+        x[r][c] = q == pr ? rk[c] : v;
+      }
+      // logical positions after the interchange of positions k and pp
+      lp[r] = q == pr ? k : (lp[r] == k ? pp : lp[r]);
+    }
+    if (k + 1 < s) publish(nxt, k + 1, pr);
     __syncthreads();
   }
-
-  // undo the row interchanges on the columns, last interchange first
-  for (int i = tid; i < s; i += kThreads)
-    for (int k = s - 1; k >= 0; --k) {
-      const int p = piv[k];
-      if (p != k) swap_vals(a[i * s + k], a[i * s + p]);
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const int q = rg + kRows * r;
+    if (q >= s) continue;
+    if (cl == 0) {
+      pos[q] = lp[r];
+      perm[lp[r]] = q;
     }
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      const int j = cl + kCols * c;
+      if (j < s) a[q * s + j] = x[r][c];
+    }
+  }
   __syncthreads();
 
-  for (int e = tid; e < ss; e += kThreads) Mo[e] = a[e];
+  // Minv[i][j] = a[perm[i]][pos[j]];  W = Minv MIB;  Schur = MIB' W
+  const int* fpos = pos;
+  const int* fperm = perm;
+  T* Mo = Minv + m * s * s;
+  for (int i = rg; i < s; i += kRows) {
+    const T* ar = a + fperm[i] * s;
+    for (int j = cl; j < s; j += kCols) Mo[(long)i * s + j] = ar[fpos[j]];
+  }
+  T* Wo = W + m * s * b;
   for (int e = tid; e < s * b; e += kThreads) {
     const int i = e / b, c = e - i * b;
-    T acc = T(0);
-    for (int j = 0; j < s; ++j) acc += a[i * s + j] * B0[j * b + c];
-    Wo[e] = acc;
+    const T* ar = a + fperm[i] * s;
+    T acc[4] = {T(0), T(0), T(0), T(0)};  // 4 chains in flight
+    int q = 0;
+    for (; q + 4 <= s; q += 4)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        acc[u] += ar[q + u] * Bs[fperm[q + u] * b + c];
+    for (; q < s; ++q) acc[0] += ar[q] * Bs[fperm[q] * b + c];
+    const T w = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    Ws[e] = w;
+    Wo[e] = w;
   }
   __syncthreads();
+  T* So = Schur + m * b * b;
   for (int e = tid; e < b * b; e += kThreads) {
     const int c1 = e / b, c2 = e - c1 * b;
-    T acc = T(0);
-    for (int i = 0; i < s; ++i) acc += B0[i * b + c1] * Wo[i * b + c2];
-    So[e] = acc;
+    T acc[4] = {T(0), T(0), T(0), T(0)};
+    int i = 0;
+    for (; i + 4 <= s; i += 4)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        acc[u] += Bs[(i + u) * b + c1] * Ws[(i + u) * b + c2];
+    for (; i < s; ++i) acc[0] += Bs[i * b + c1] * Ws[i * b + c2];
+    So[e] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
 }
 
-template <typename T>
-size_t smem_bytes(int s) {
-  return (size_t)s * s * sizeof(T) + (size_t)s * sizeof(T) +
-         (size_t)s * sizeof(int);
+template <typename T, int N>
+int launch_n(const T* MII, const T* MIB, T* Minv, T* W, T* Schur, int nb,
+             int s, int b, size_t bytes, cudaStream_t stream) {
+  if (bytes > 48 * 1024) {
+    static bool raised = false;
+    if (!raised) {
+      cudaError_t err = cudaFuncSetAttribute(
+          gj_interior_kernel<T, N>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, hqp::smem_optin());
+      if (err != cudaSuccess) return (int)err;
+      raised = true;
+    }
+  }
+  gj_interior_kernel<T, N><<<nb, kThreads, bytes, stream>>>(
+      MII, MIB, Minv, W, Schur, s, b);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* MII, const T* MIB, T* Minv, T* W, T* Schur, int nb,
            int s, int b, cudaStream_t stream) {
   if (nb <= 0 || s <= 0) return (int)cudaSuccess;
-  const size_t bytes = smem_bytes<T>(s);
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gj_interior_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  gj_interior_kernel<T><<<nb, kThreads, bytes, stream>>>(MII, MIB, Minv, W,
-                                                        Schur, s, b);
-  return (int)cudaGetLastError();
+  const size_t bytes = layout<T>(s, b).total;
+  const int n = (s + kCols - 1) / kCols;
+#define HQP_GJ_N(N_)                                                       \
+  if (n <= N_)                                                             \
+    return launch_n<T, N_>(MII, MIB, Minv, W, Schur, nb, s, b, bytes, stream);
+  HQP_GJ_N(1) HQP_GJ_N(2) HQP_GJ_N(3) HQP_GJ_N(4) HQP_GJ_N(6) HQP_GJ_N(8)
+  HQP_GJ_N(12) HQP_GJ_N(16)
+#undef HQP_GJ_N
+  return (int)cudaErrorInvalidValue;  // s > 256: more than any tile holds
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one matrix of size s needs (the wrapper checks it against
-// the device limit before launching).
-size_t hqp_gj_interior_smem_f64(int s) { return smem_bytes<double>(s); }
-size_t hqp_gj_interior_smem_f32(int s) { return smem_bytes<float>(s); }
+// Shared memory one matrix of size s with b boundary columns needs (the
+// wrapper checks it against the device limit before launching).
+size_t hqp_gj_interior_smem_f64(int s, int b) {
+  return layout<double>(s, b).total;
+}
+size_t hqp_gj_interior_smem_f32(int s, int b) {
+  return layout<float>(s, b).total;
+}
 
 int hqp_gj_interior_f64(const double* MII, const double* MIB, double* Minv,
                         double* W, double* Schur, int nb, int s, int b,

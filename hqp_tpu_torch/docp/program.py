@@ -12,8 +12,8 @@ plus bound arrays.  Stage functions are written in torch ops that
 ``torch.func`` can transform (build vectors with ``torch.stack``, not
 ``torch.tensor``); all stages evaluate batched under ``torch.func.vmap``,
 and the Jacobians come from ``torch.func.jacfwd``.  Every program lives on
-an explicit ``device``; ``setup`` runs in host numpy and places only its
-final arrays there.
+one ``device``, the card unless the constructor is given another;
+``setup`` runs in host numpy and places only its final arrays there.
 
 Assembled QP form: :class:`hqp_tpu_torch.qp.program.StageQP`, with the
 per-stage variable v_k = (x_k, u_k) and u padded (fixed to 0) at stage K.
@@ -41,16 +41,17 @@ def resolve_device(device) -> torch.device:
 
 class Docp:
     """Base class for stage-structured programs.  Subclass and override
-    the dims, bounds and stage functions; set ``self.device`` (through
-    :func:`resolve_device`) in the constructor."""
+    the dims, bounds and stage functions; a subclass constructor passes
+    its ``device`` to ``Docp.__init__``."""
 
     K: int = 0
     nx: int = 0
     nu: int = 0
     mc: int = 0
-    device: torch.device = torch.device("cpu")
-
     name = "Docp"
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
 
     # ---- user interface (override) ----------------------------------------
 

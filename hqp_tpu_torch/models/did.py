@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hqp_tpu_torch.docp.program import Docp, resolve_device
+from hqp_tpu_torch.docp.program import Docp
 from hqp_tpu_torch.utils.registry import modules
 
 
@@ -29,11 +29,11 @@ class PrgDID(Docp):
     mc = 1
 
     def __init__(self, kmax: int = 60, with_cns: bool = True,
-                 device="cpu"):
+                 device="cuda"):
+        super().__init__(device)
         self.K = kmax
         self.with_cns = with_cns
         self.dt = 1.0 / kmax
-        self.device = resolve_device(device)
         if not with_cns:
             self.mc = 0
 

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and the objects are linked
 into ONE shared library with a plain C interface, which is loaded with
 ctypes.  The build happens at the first CUDA use, from the sources in the
 checkout alone, into ``build/hqp_tpu_torch/<hash>/`` beside the package
@@ -24,7 +25,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "hqp_tpu_torch")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,10 +35,12 @@ _I = ctypes.c_int
 SIGNATURES = {
     "hqp_gj_interior_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hqp_gj_interior_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "hqp_gj_interior_smem_f64": [_I],
-    "hqp_gj_interior_smem_f32": [_I],
+    "hqp_gj_interior_smem_f64": [_I, _I],
+    "hqp_gj_interior_smem_f32": [_I, _I],
     "hqp_thomas_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hqp_thomas_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "hqp_thomas_plan_f64": [_I, _I],
+    "hqp_thomas_plan_f32": [_I, _I],
 }
 _RESTYPES = {"hqp_gj_interior_smem_f64": ctypes.c_size_t,
              "hqp_gj_interior_smem_f32": ctypes.c_size_t}
@@ -67,7 +71,7 @@ def nvcc_path():
 
 
 def _digest(srcs):
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in srcs:
         h.update(os.path.basename(p).encode())
         with open(p, "rb") as fh:
@@ -86,19 +90,37 @@ def build():
         INFO.update(path=lib, seconds=0.0, log="", built=False)
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    work = tempfile.mkdtemp(dir=out_dir)
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in srcs:
+        obj = os.path.join(work, os.path.basename(src) + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = "", []
+    for cmd, _, proc in jobs:
+        log += " ".join(cmd) + "\n" + proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    if not failed:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(proc.returncode)
+    shutil.rmtree(work, ignore_errors=True)
     secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
     os.replace(tmp, lib)
     with open(os.path.join(out_dir, "nvcc.log"), "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + log)
+        fh.write(log)
     INFO.update(path=lib, seconds=secs, log=log, built=True)
     return lib
 

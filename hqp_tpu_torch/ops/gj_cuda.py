@@ -7,10 +7,12 @@ returns ``Minv = MII^-1``, ``W = Minv MIB`` and ``Schur = MIB' W``.
 :func:`interior_factor` launches the kernel for CUDA tensors and takes the
 plain version :func:`interior_factor_plain` only for CPU tensors.  Both run
 the same algorithm: Gauss-Jordan IN PLACE with partial pivoting (pivot =
-first max of |column k| over rows >= k, NaN never wins), row interchanges
-recorded and undone on the columns at the end, so both take the TPU
-kernel's pivot sequence.  Unlike the TPU kernel, the port keeps the input
-dtype: float64 or float32.
+first max of |column k| over rows >= k, NaN never wins), so both take the
+TPU kernel's pivot sequence, and round the elimination alike, so their
+inverses agree to the last bit.  The twin swaps rows and undoes the
+interchanges on the columns at the end; the kernel leaves the rows where
+they are and reads the result out through the interchanges.  Unlike the
+TPU kernel, the port keeps the input dtype: float64 or float32.
 """
 
 from __future__ import annotations
@@ -93,10 +95,10 @@ def interior_factor(MII, MIB):
     lib = _build.library()
     limit = torch.cuda.get_device_properties(
         MII.device).shared_memory_per_block_optin
-    if _smem_fn(lib, MII.dtype)(s) > limit:
-        raise ValueError(f"interior_factor: s = {s} needs more shared "
-                         f"memory than the device's {limit} bytes")
     b = MIB.shape[-1]
+    if _smem_fn(lib, MII.dtype)(s, b) > limit:
+        raise ValueError(f"interior_factor: s = {s}, b = {b} needs more "
+                         f"shared memory than the device's {limit} bytes")
     nb = MII.numel() // (s * s)
     Minv = torch.empty_like(MII)
     W = torch.empty_like(MIB)

@@ -18,7 +18,8 @@ import torch
 
 from hqp_tpu_torch.ops import _build
 
-#: largest block the kernel takes (one thread per block element)
+#: largest block the kernel takes (a warp holds one block, two elements a
+#: lane)
 MAX_BLOCK = 8
 
 #: kernel launches since import
@@ -64,13 +65,24 @@ def thomas_solve_plain(D, U, rhs):
     return torch.stack(x, dim=-2)
 
 
+def _fn(lib, name, dtype):
+    return getattr(lib, name + ("_f64" if dtype == torch.float64 else "_f32"))
+
+
+def plan(N, n, dtype):
+    """How the kernel takes a system of N blocks of n x n: 0 staged whole
+    in shared memory, 1 staged whole with G and g in global scratch, 2
+    streamed through its two-chunk ring (too large to stage at once)."""
+    return _fn(_build.library(), "hqp_thomas_plan", dtype)(N, n)
+
+
 def thomas_solve(D, U, rhs):
     """Solve tridiag(U', D, U) x = rhs.  D: [B?, N, n, n], U: [B?, N-1, n,
     n], rhs: [B?, N, n].
 
     CPU tensors: :func:`thomas_solve_plain`.  CUDA tensors: one launch of
-    the kernel with one thread block per system, or an exception -- never
-    a fallback."""
+    the kernel with one warp per system, or an exception -- never a
+    fallback."""
     global LAUNCHES
     devs = {D.device, U.device, rhs.device}
     if all(d.type == "cpu" for d in devs):
@@ -95,18 +107,22 @@ def thomas_solve(D, U, rhs):
         raise ValueError("thomas_solve: inputs must be contiguous")
     nb = D.numel() // max(N * n * n, 1)
     x = torch.empty_like(rhs)
-    # scratch, dropped on return while the launch may still run: safe, as
-    # the caching allocator gives freed blocks only to later work on the
-    # same stream
-    G = torch.empty_like(D)
-    g = torch.empty_like(rhs)
+    if nb == 0 or N == 0:
+        return x
     lib = _build.library()
-    fn = lib.hqp_thomas_f64 if D.dtype == torch.float64 else \
-        lib.hqp_thomas_f32
+    G = g = None
+    if _fn(lib, "hqp_thomas_plan", D.dtype)(N, n) > 0:
+        # G and g do not fit beside the system in shared memory.  Dropped
+        # on return while the launch may still run: safe, as the caching
+        # allocator gives freed blocks only to later work on the same
+        # stream
+        G, g = torch.empty_like(D), torch.empty_like(rhs)
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(D.data_ptr(), U.data_ptr(), rhs.data_ptr(), x.data_ptr(),
-                 G.data_ptr(), g.data_ptr(), nb, N, n, stream)
+        err = _fn(lib, "hqp_thomas", D.dtype)(
+            D.data_ptr(), U.data_ptr(), rhs.data_ptr(), x.data_ptr(),
+            None if G is None else G.data_ptr(),
+            None if g is None else g.data_ptr(), nb, N, n, stream)
     _build.check(err, "thomas kernel launch")
     LAUNCHES += 1
     return x

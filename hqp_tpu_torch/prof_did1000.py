@@ -202,6 +202,12 @@ def device_trace(kmax, device, top=12):
                                 key=lambda kv: -kv[1][0])[:top]:
         print(f"[3]   {us / 1e3:9.2f} ms {100 * us / max(busy, 1):5.1f}% "
               f"{n:7d}x {name[:90]}")
+    for tag, key in (("K1", "gj_interior_kernel"), ("K2", "thomas_kernel")):
+        us = sum(v[0] for k, v in by_name.items() if key in k)
+        n = sum(v[1] for k, v in by_name.items() if key in k)
+        print(f"[3]   {tag}: {us / 1e3:.2f} ms in {n} launches, "
+              f"{us / max(n, 1) / 1e3:.4f} ms per launch, "
+              f"{100 * us / max(busy, 1):.1f}% of the device time")
 
 
 def default_eps(kmax, device):

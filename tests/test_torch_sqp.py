@@ -3,8 +3,9 @@
 Each layer of the DID solve path (PartitionedKKT -> Mehrotra -> Docp /
 PrgDID -> BFGS -> SqpPowell) gets the same seeded inputs in both
 packages (handed over as numpy through ``hqp_tpu_torch.convert``) and is
-compared at a stated tolerance.  The port runs here on CPU tensors, so its
-kernel wrappers take their plain twins.
+compared at a stated tolerance.  The port's entry points default to the
+card, so every test here asks for the CPU (``device="cpu"``, through the
+helpers below), where the kernel wrappers take their plain twins.
 """
 
 import os
@@ -33,6 +34,11 @@ from hqp_tpu_torch.sqp.hessian import BFGS
 from hqp_tpu_torch.sqp.powell import SqpPowell
 
 _G = ("bl", "bu", "gl", "gu")
+CPU = "cpu"
+
+
+def _c(a):
+    return convert.tensor(a, device=CPU)
 
 
 def _np(a):
@@ -49,9 +55,10 @@ def _kkt_inputs(K, nx, nu, mc, seed):
     qp = random_stage_qp(K, nx, nu, mc, seed=seed)
     z, w, mask = random_zw(qp, seed=1)
     r = random_rhs(qp, seed=2)
-    port = (convert.stage_qp(qp), convert.ineq(z), convert.ineq(w),
-            convert.ineq(mask), convert.tensor(r[0]), convert.eq(r[1]),
-            convert.ineq(r[2]), convert.ineq(r[3]))
+    port = (convert.stage_qp(qp, CPU), convert.ineq(z, CPU),
+            convert.ineq(w, CPU), convert.ineq(mask, CPU), _c(r[0]),
+            convert.eq(r[1], CPU), convert.ineq(r[2], CPU),
+            convert.ineq(r[3], CPU))
     return (qp, z, w, mask, *r), port
 
 
@@ -117,13 +124,13 @@ def test_partitioned_kkt_matches_reference_f32():
 
 @pytest.mark.parametrize("kmax,cns", [(12, True), (8, False)])
 def test_docp_did_matches_reference(kmax, cns):
-    jp, tp = JPrgDID(kmax=kmax, with_cns=cns), PrgDID(kmax=kmax,
-                                                      with_cns=cns)
+    jp = JPrgDID(kmax=kmax, with_cns=cns)
+    tp = PrgDID(kmax=kmax, with_cns=cns, device=CPU)
     x0j, x0t = jp.setup(), tp.setup()
     _close(x0t, x0j, 0.0)
     rng = np.random.default_rng(kmax)
     v = np.asarray(x0j) + 0.1 * rng.standard_normal(x0j.shape)
-    vj, vt = jnp.asarray(v), convert.tensor(v)
+    vj, vt = jnp.asarray(v), _c(v)
     for a, b in zip(tp.eval_vals(vt), jp.eval_vals(vj)):
         _close(a, b, 1e-12)
     for a, b in zip(tp.eval_derivs(vt), jp.eval_derivs(vj)):
@@ -144,7 +151,7 @@ def test_docp_did_matches_reference(kmax, cns):
     gj = jp.eval_grd_L(vj, {k: jnp.asarray(a) for k, a in y.items()},
                        JIneqGroups(**{g: jnp.asarray(a)
                                       for g, a in z.items()}))
-    gt = tp.eval_grd_L(vt, convert.eq(y), convert.ineq(z))
+    gt = tp.eval_grd_L(vt, convert.eq(y, CPU), convert.ineq(z, CPU))
     _close(gt, gj, 1e-12)
 
 
@@ -162,13 +169,11 @@ def test_bfgs_update_matches_reference():
     for alpha in (1.0, 0.3):
         ref = JBFGS().update(jnp.asarray(Q), jnp.asarray(s), jnp.asarray(u),
                              alpha)
-        out = BFGS().update(convert.tensor(Q), convert.tensor(s),
-                            convert.tensor(u), alpha)
+        out = BFGS().update(_c(Q), _c(s), _c(u), alpha)
         _close(out, ref, 1e-12)
     ref = JBFGS(gamma=-0.2).update(jnp.asarray(Q), jnp.asarray(s),
                                    jnp.asarray(u), 0.5)
-    out = BFGS(gamma=-0.2).update(convert.tensor(Q), convert.tensor(s),
-                                  convert.tensor(u), 0.5)
+    out = BFGS(gamma=-0.2).update(_c(Q), _c(s), _c(u), 0.5)
     _close(out, ref, 1e-12)
 
 
@@ -186,7 +191,8 @@ def did30():
     jqp0, jst0 = js.qp, js.ip_state
     jres = js.solve()
 
-    ts = SqpPowell(PrgDID(kmax=30, with_cns=False), max_iters=50)
+    ts = SqpPowell(PrgDID(kmax=30, with_cns=False, device=CPU),
+                   max_iters=50)
     ts.init()
     tres = ts.solve()
     return dict(js=js, jres=jres, jqp0=jqp0, jst0=jst0, ts=ts, tres=tres)
@@ -197,7 +203,7 @@ def test_mehrotra_first_qp_matches_reference(did30):
     iteration count, x/y/z at 1e-7 (the IP tolerance is 1e-9 relative)."""
     js = did30["js"]
     ref = js.qp_solver.solve(did30["jqp0"], did30["jst0"])
-    qp = convert.stage_qp(did30["jqp0"])
+    qp = convert.stage_qp(did30["jqp0"], CPU)
     m = Mehrotra(eps=1e-9, max_iters=50).with_backend(PartitionedKKT())
     out = m.solve(qp, m.init_state(qp))
     assert int(out.result) == int(ref.result) == 0
@@ -222,7 +228,7 @@ def test_sqp_did30_matches_reference(did30):
 def test_sqp_did60_oracle():
     """PrgDID(kmax=60) with its path constraint: the SLSQP-validated
     objective of tests/test_sqp_did.py."""
-    s = SqpPowell(PrgDID(kmax=60), max_iters=50)
+    s = SqpPowell(PrgDID(kmax=60, device=CPU), max_iters=50)
     s.init()
     assert s.solve() == "optimal"
     assert s.norm_inf < s.eps
@@ -232,12 +238,26 @@ def test_sqp_did60_oracle():
     np.testing.assert_allclose(float(s.f), 98.4, rtol=1e-6)
 
 
-def test_cuda_device_refused_without_card(monkeypatch):
+@pytest.mark.parametrize("case", ["explicit", "default"])
+def test_cuda_device_refused_without_card(monkeypatch, case):
     """Asking for the card where there is none raises; nothing carries on
-    on the CPU."""
+    on the CPU.  With no ``device`` the entry points ask for the card, and
+    they build on the CPU only when the caller names it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if case == "explicit":
+        with pytest.raises(RuntimeError):
+            PrgDID(kmax=10, device="cuda")
+        return
     with pytest.raises(RuntimeError):
-        PrgDID(kmax=10, device="cuda")
+        PrgDID(kmax=10)
+    for fn, arg in ((convert.tensor, np.zeros(3)),
+                    (convert.eq, {"dyn": np.zeros(3)}),
+                    (convert.ineq, {g: np.zeros(2) for g in _G})):
+        with pytest.raises(RuntimeError):
+            fn(arg)
+    prg = PrgDID(kmax=10, device=CPU)
+    assert prg.device.type == "cpu" and prg.setup().device.type == "cpu"
+    assert _c(np.zeros(3)).device.type == "cpu"
 
 
 def test_port_imports_no_jax():
