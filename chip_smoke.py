@@ -20,7 +20,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   6. SqpPowell(PrgDID(kmax=60)) on the card: optimal at 98.4;
   7. SqpPowell(PrgDID(kmax=1000)) on the card, init/simulate/solve cold
      then warm: optimal at the reference objective, with both kernels'
-     launch counts, host syncs per IP iteration and solve times.
+     launch counts, host syncs per IP iteration and solve times;
+  8. K1's routes against the twin: the large kernel at s = 245, b = 10
+     (f64 and f32, with and without a forced row swap) and at s = 512, the
+     register kernel at the crane's s = 124, b = 12; each case checks the
+     route it took and that route's launch counter;
+  9. the measures of phase 5 at this slice's shapes: the register kernel at
+     P = 100, s = 124, b = 12 (the crane's interior at 1000 stages), the
+     large kernel at P = 1, s = 245, b = 10 (CranePar's interior), K2 at
+     N = 101, n = 6;
+ 10. one f64 factor+solve link of PartitionedKKT(L=10) on bench.py's
+     nx6-1000 stage QP (the crane's block sizes at 1000 stages), gated on
+     its KKT residual, with ms per link;
+ 11. SqpPowell(PrgCrane(K=50)), init/simulate/solve: optimal at the
+     reference objective, with the launches of K1 by route and of K2 and
+     host syncs per IP iteration;
+ 12. BatchReactor, Bio, TP383omu, HS99omu and CranePar (init/solve), each
+     optimal at its reference objective; CranePar's interior (s = 245)
+     must go through the large K1 kernel.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -56,6 +73,20 @@ PEAK_FLOP_S = {torch.float64: 67e12, torch.float32: 67e12}
 #: reference's command and output, and phase 4 of
 #: ``python -m hqp_tpu_torch.prof_did1000`` shows the port's on the card)
 QP_EPS_DID1000 = 1e-7
+#: the odc suite's objectives, SQP and IP iterations in the JAX reference
+#: package on a CPU host in f64: SqpPowell(prg, max_iters=100), init(),
+#: solve() with each program's default arguments (Crane: K=50; the
+#: port's Crane drive adds simulate(), which keeps the same optimum)
+REF_OMU = {
+    "Crane": (11.675123552118006, 6, 98),
+    "BatchReactor": (-0.5734788463825502, 9, 44),
+    "Bio": (-6.880796996428104, 15, 131),
+    "TP383omu": (728593.645954019, 8, 77),
+    "HS99omu": (-831079891.5623015, 6, 31),
+    "CranePar": (0.017026127127584032, 6, 13),
+}
+#: objective tolerance of the suite's drives (relative)
+OMU_RTOL = 1e-6
 
 
 def check(cond, msg):
@@ -126,6 +157,99 @@ def gj_inputs(P, s, b, dtype, seed, swap=False):
             torch.as_tensor(B, dtype=dtype, device="cuda"))
 
 
+def gj_bound(P, s, b, dtype):
+    """K1's bound: bytes, each input read once and each output written
+    once; FLOPs, GJ inverse 2 s^3, W 2 s^2 b, Schur 2 s b^2."""
+    el = torch.finfo(dtype).bits // 8
+    return bound(P * (2 * s * s + 2 * s * b + b * b) * el,
+                 P * (2 * s ** 3 + 2 * s * s * b + 2 * s * b * b), dtype)
+
+
+def thomas_bound(D, U, r):
+    """K2's bound: bytes as for K1; FLOPs per block 2n^3 (U'G) + 4n^3
+    (inverse) + 2n^3 (CU) + 6n^2 (vectors) + n."""
+    N, n = D.shape[-3], D.shape[-1]
+    el = torch.finfo(D.dtype).bits // 8
+    return bound((D.numel() + U.numel() + 2 * r.numel()) * el,
+                 N * (8 * n ** 3 + 6 * n * n + n), D.dtype)
+
+
+def tridiag_dense(D, U):
+    """The assembled dense [N n, N n] system of one block-tridiagonal."""
+    N, n = D.shape[0], D.shape[-1]
+    T = torch.zeros((N * n, N * n), dtype=D.dtype, device=D.device)
+    for i in range(N):
+        T[i * n:(i + 1) * n, i * n:(i + 1) * n] = D[i]
+    for i in range(N - 1):
+        T[i * n:(i + 1) * n, (i + 1) * n:(i + 2) * n] = U[i]
+        T[(i + 1) * n:(i + 2) * n, i * n:(i + 1) * n] = U[i].T
+    return T
+
+
+def measure(run, plain, library, kernel, bnd):
+    """A kernel's times at one shape: 50 back-to-back launches (median of
+    5), profiler device time, a single launch (median of 20), its plain
+    twin, its library yardstick (50 back-to-back calls) and its bound."""
+    return dict(ms=median_ms(run, reps=5, runs=50),
+                device_ms=device_ms(run, kernel), single_ms=median_ms(run),
+                plain_ms=median_ms(plain, reps=5),
+                library_ms=median_ms(library, reps=5, runs=50), bound=bnd)
+
+
+def time_gj(M, B, kernel):
+    """``measure`` for K1 on one batch; the yardstick is torch.linalg.inv
+    on the same batch (Minv only)."""
+    from hqp_tpu_torch.ops import gj_cuda
+    return measure(lambda: gj_cuda.interior_factor(M, B),
+                   lambda: gj_cuda.interior_factor_plain(M, B),
+                   lambda: torch.linalg.inv(M), kernel,
+                   gj_bound(M.shape[0], M.shape[-1], B.shape[-1], M.dtype))
+
+
+def time_thomas(D, U, r):
+    """``measure`` for K2 on one system; the yardstick is the dense
+    torch.linalg.solve of the assembled system."""
+    from hqp_tpu_torch.ops import thomas_cuda
+    N, n = D.shape[0], D.shape[-1]
+    T, rv = tridiag_dense(D, U), r.reshape(-1, 1)
+
+    def run():
+        return thomas_cuda.thomas_solve(D, U, r)
+
+    check(rel_err(torch.linalg.solve(T, rv).reshape(N, n), run()) < 1e-10,
+          "K2's library yardstick solves another system")
+    return measure(run, lambda: thomas_cuda.thomas_solve_plain(D, U, r),
+                   lambda: torch.linalg.solve(T, rv), "thomas_kernel",
+                   thomas_bound(D, U, r))
+
+
+def show(phase, name, t, what):
+    dev = "not measured" if t["device_ms"] is None else \
+        f"{t['device_ms']:.4f} ms"
+    print(f"[{phase}] {name}: kernel {t['ms']:.4f} ms per launch (50 "
+          f"back-to-back, median of 5), device {dev} per launch (profiler, "
+          f"50 launches), single launch {t['single_ms']:.4f} ms (median of "
+          f"20); plain {t['plain_ms']:.4f} ms; library "
+          f"{t['library_ms']:.4f} ms; bound {t['bound'][0]:.3e} ms "
+          f"({t['bound'][1]}); {what}")
+
+
+def gj_launches():
+    """K1's launch counters by route."""
+    from hqp_tpu_torch.ops import gj_cuda
+    return {"tile": gj_cuda.LAUNCHES, "large": gj_cuda.LAUNCHES_LARGE,
+            "inv": gj_cuda.LAUNCHES_INV}
+
+
+def reset_counts():
+    """Every kernel launch counter and the host-sync counter to 0."""
+    from hqp_tpu_torch.ops import gj_cuda, thomas_cuda
+    from hqp_tpu_torch.utils import sync
+    gj_cuda.LAUNCHES = gj_cuda.LAUNCHES_LARGE = gj_cuda.LAUNCHES_INV = 0
+    thomas_cuda.LAUNCHES = 0
+    sync.COUNT = 0
+
+
 def thomas_inputs(B, N, n, dtype, seed):
     """Equilibrated SPD block-tridiagonal systems (unit diagonal blocks
     after Jacobi scaling, as the master solve hands them over)."""
@@ -138,6 +262,100 @@ def thomas_inputs(B, N, n, dtype, seed):
     r = rng.standard_normal((B, N, n))
     return tuple(torch.as_tensor(a, dtype=dtype, device="cuda").contiguous()
                  for a in (Ds, Us, r))
+
+
+def nx6_link(reps=5):
+    """bench.py's cfg_nx6_1000 stage QP (built as there, in numpy from
+    default_rng(0)) and PartitionedKKT(L=10) factor+solve links on it in
+    f64: (median ms per link after one warm-up, KKT residual of the last
+    link)."""
+    from hqp_tpu_torch.qp import kkt as K_
+    from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
+    from hqp_tpu_torch.qp.program import StageQP
+    from hqp_tpu_torch.utils import masked as mk
+    rng = np.random.default_rng(0)
+    K, nx, nu = 1000, 6, 1
+    nv = nx + nu
+    M = rng.standard_normal((K + 1, nv, nv)) * 0.1
+    Q = M @ M.transpose(0, 2, 1) + 0.5 * np.eye(nv)
+    A = np.tile(np.concatenate([np.eye(nx), np.ones((nx, nu)) * 0.01],
+                               axis=1), (K, 1, 1)) \
+        + 0.01 * rng.standard_normal((K, nx, nv))
+    b = 0.01 * rng.standard_normal((K, nx))
+    lb = np.full((K + 1, nv), -2.0)
+    ub = np.full((K + 1, nv), 2.0)
+    lb[-1, nx:] = ub[-1, nx:] = 0.0
+    var_mask = np.ones((K + 1, nv), bool)
+    var_mask[-1, nx:] = False
+
+    def t(a):
+        return torch.as_tensor(a, device="cuda")
+
+    qp = StageQP(Q=t(Q), c=t(np.zeros((K + 1, nv))), A=t(A), b=t(b),
+                 lb=t(lb), ub=t(ub), C=t(np.zeros((K + 1, 1, nv))),
+                 d_lo=t(np.full((K + 1, 1), -np.inf)),
+                 d_up=t(np.full((K + 1, 1), np.inf)), var_mask=t(var_mask),
+                 con_mask=t(np.zeros((K + 1, 1), bool)))
+    mask = qp.ineq_mask()
+    ones = mk.fill(mask, 1.0)
+    rhs = (t(np.ones((K + 1, nv))), qp.eq_offsets(), mk.fill(mask, 0.0),
+           mk.fill(mask, 0.0))
+    be = PartitionedKKT(L=10)
+    ms = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = be.solve(be.factor(qp, ones, ones, mask), qp, ones, ones, mask,
+                       *rhs)
+        torch.cuda.synchronize()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    *_, res = K_.kkt_residual(qp, ones, ones, mask, *rhs, *sol)
+    return statistics.median(ms), float(res)
+
+
+def omu_programs():
+    """Constructors of the Omuses programs on the card."""
+    from hqp_tpu_torch.models import omu_suite as S
+    from hqp_tpu_torch.models.crane import PrgCrane
+    return {"Crane": lambda: PrgCrane(K=50, device="cuda"),
+            "BatchReactor": lambda: S.PrgBatchReactor(device="cuda"),
+            "Bio": lambda: S.PrgBio(device="cuda"),
+            "TP383omu": lambda: S.PrgTP383omu(device="cuda"),
+            "HS99omu": lambda: S.PrgHS99omu(device="cuda"),
+            "CranePar": lambda: S.PrgCranePar(device="cuda")}
+
+
+def omu_drive(phase, name, make, simulate):
+    """One SqpPowell(prg, max_iters=100) solve on the card with every
+    counter set to 0 just before it: optimal at the reference objective.
+    Returns the launches it counted."""
+    from hqp_tpu_torch.ops import thomas_cuda
+    from hqp_tpu_torch.sqp.powell import SqpPowell
+    from hqp_tpu_torch.utils import sync
+    f_ref, sqp_ref, ip_ref = REF_OMU[name]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = SqpPowell(make(), max_iters=100)
+    s.init()
+    if simulate:
+        s.simulate()
+    res = s.solve()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {"gj": gj_launches(), "thomas": thomas_cuda.LAUNCHES}
+    f, ip = float(s.f), s.qp_iters_total
+    print(f"[{phase}] {name}: {res}, f = {f!r} (reference {f_ref!r}, rel "
+          f"{abs(f - f_ref) / abs(f_ref):.1e}), {secs:.3f} s, SQP {s.iter} "
+          f"IP {ip} (reference {sqp_ref} / {ip_ref} without simulate), "
+          f"host syncs {sync.COUNT} ({sync.COUNT / max(ip, 1):.2f} per IP "
+          f"iteration), launches K1 {counts['gj']} K2 {counts['thomas']}")
+    check(s.x.is_cuda and s.qp.Q.is_cuda, f"{name}: not on the card")
+    check(res == "optimal", f"{name}: {res}")
+    check(abs(f - f_ref) <= OMU_RTOL * abs(f_ref),
+          f"{name}: objective {f} vs reference {f_ref}")
+    return counts
 
 
 def main():
@@ -176,21 +394,35 @@ def main():
              (11, 17, 4, torch.float32, True),
              (2, 124, 4, torch.float64, True),
              (1, 48, 4, torch.float64, True)]
-    for i, (P, s, b, dt, swap) in enumerate(cases):
-        M, B = gj_inputs(P, s, b, dt, seed=i, swap=swap)
+    def gj_case(phase, P, s, b, dt, swap, seed):
+        """K1 (whichever route the size takes) against the twin; returns
+        the route, the largest absolute error of Minv and the launches
+        of each route counted by this one call."""
+        M, B = gj_inputs(P, s, b, dt, seed=seed, swap=swap)
+        before = gj_launches()
         out = gj_cuda.interior_factor(M, B)
+        after = gj_launches()
         ref = gj_cuda.interior_factor_plain(M, B)
         torch.cuda.synchronize()
         e = [rel_err(o, r) for o, r in zip(out, ref)]
         eye = torch.eye(s, dtype=dt, device="cuda")
         resid = float((out[0] @ M - eye).abs().max())
-        print(f"[3] K1 P={P} s={s} b={b} {str(dt)[6:]} swap={swap}: "
-              f"rel err Minv {e[0]:.2e} W {e[1]:.2e} Schur {e[2]:.2e}; "
-              f"|Minv M - I| {resid:.2e}")
+        way = gj_cuda.route(s, b, dt, M.device)
+        print(f"[{phase}] K1 P={P} s={s} b={b} {str(dt)[6:]} swap={swap}: "
+              f"route {way}; rel err Minv {e[0]:.2e} W {e[1]:.2e} Schur "
+              f"{e[2]:.2e}; |Minv M - I| {resid:.2e}")
         check(max(e) <= tol[dt], f"K1 disagrees with its twin ({e})")
         check(resid <= 100 * tol[dt], f"K1 inverse residual {resid}")
+        counted = {k: after[k] - before[k] for k in after}
+        check(counted == {k: int(k == way) for k in counted},
+              f"K1 at s={s}: route {way} but launches {counted}")
+        return way, float((out[0] - ref[0]).abs().max())
+
+    for i, (P, s, b, dt, swap) in enumerate(cases):
+        way, err = gj_case(3, P, s, b, dt, swap, seed=i)
+        check(way == "tile", f"K1 at s={s} left the register kernel")
         if (P, s, dt) == (100, 48, torch.float64):
-            errs["gj"] = float((out[0] - ref[0]).abs().max())
+            errs["gj"] = err
 
     # -- 4. K2 against its plain twin -------------------------------------
     for i, (Bn, N, n, dt) in enumerate([
@@ -217,56 +449,11 @@ def main():
     f64 = torch.float64
     P, sz, bz = 100, 48, 4
     M, B = gj_inputs(P, sz, bz, f64, seed=0)
-    D, U, r = (a[0] for a in thomas_inputs(1, 101, 2, f64, seed=10))
-    N, n = D.shape[0], D.shape[-1]
-    T = torch.zeros((N * n, N * n), dtype=f64, device="cuda")
-    for i in range(N):
-        T[i * n:(i + 1) * n, i * n:(i + 1) * n] = D[i]
-    for i in range(N - 1):
-        T[i * n:(i + 1) * n, (i + 1) * n:(i + 2) * n] = U[i]
-        T[(i + 1) * n:(i + 2) * n, i * n:(i + 1) * n] = U[i].T
-    rv = r.reshape(-1, 1)
-    gj_run = lambda: gj_cuda.interior_factor(M, B)            # noqa: E731
-    th_run = lambda: thomas_cuda.thomas_solve(D, U, r)        # noqa: E731
-    check(rel_err(torch.linalg.solve(T, rv).reshape(N, n), th_run()) < 1e-10,
-          "K2's library yardstick solves another system")
-    # bytes: each input read once, each output written once; FLOPs: GJ
-    # inverse 2 s^3, W 2 s^2 b, Schur 2 s b^2; block Thomas per block
-    # 2n^3 (U'G) + 4n^3 (inverse) + 2n^3 (CU) + 6n^2 (vectors) + n
-    el = torch.finfo(f64).bits // 8
-    gj_bound = bound(P * (2 * sz * sz + 2 * sz * bz + bz * bz) * el,
-                     P * (2 * sz ** 3 + 2 * sz * sz * bz + 2 * sz * bz * bz),
-                     f64)
-    th_bound = bound((D.numel() + U.numel() + 2 * r.numel()) * el,
-                     N * (8 * n ** 3 + 6 * n * n + n), f64)
-    times = {
-        "gj": dict(
-            ms=median_ms(gj_run, reps=5, runs=50),
-            device_ms=device_ms(gj_run, "gj_interior_kernel"),
-            single_ms=median_ms(gj_run),
-            plain_ms=median_ms(lambda: gj_cuda.interior_factor_plain(M, B),
-                               reps=5),
-            library_ms=median_ms(lambda: torch.linalg.inv(M), reps=5,
-                                 runs=50),
-            bound=gj_bound),
-        "thomas": dict(
-            ms=median_ms(th_run, reps=5, runs=50),
-            device_ms=device_ms(th_run, "thomas_kernel"),
-            single_ms=median_ms(th_run),
-            plain_ms=median_ms(
-                lambda: thomas_cuda.thomas_solve_plain(D, U, r), reps=5),
-            library_ms=median_ms(lambda: torch.linalg.solve(T, rv), reps=5,
-                                 runs=50),
-            bound=th_bound)}
+    times = {"gj": time_gj(M, B, "gj_interior_kernel"),
+             "thomas": time_thomas(*(a[0] for a in thomas_inputs(
+                 1, 101, 2, f64, seed=10)))}
     for k, t in times.items():
-        dev = "not measured" if t["device_ms"] is None else \
-            f"{t['device_ms']:.4f} ms"
-        print(f"[5] {k}: kernel {t['ms']:.4f} ms per launch (50 "
-              f"back-to-back, median of 5), device {dev} per launch "
-              f"(profiler, 50 launches), single launch {t['single_ms']:.4f} "
-              f"ms (median of 20); plain {t['plain_ms']:.4f} ms; library "
-              f"{t['library_ms']:.4f} ms; bound {t['bound'][0]:.3e} ms "
-              f"({t['bound'][1]}); f64, main-path shape, on {smi}")
+        show(5, k, t, f"f64, main-path shape, on {smi}")
     print("[5] library yardsticks: K1 torch.linalg.inv on [100, 48, 48] "
           "(Minv only, 92% of K1's FLOPs); K2 torch.linalg.solve on the "
           "assembled dense [202, 202] system")
@@ -282,8 +469,7 @@ def main():
 
     # -- 7. DID-1000, the main path ------------------------------------------
     def did1000(tag):
-        gj_cuda.LAUNCHES = thomas_cuda.LAUNCHES = 0
-        sync.COUNT = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s = SqpPowell(PrgDID(kmax=1000, device="cuda"), max_iters=50,
@@ -318,6 +504,63 @@ def main():
     launches = did1000("cold")
     did1000("warm")
 
+    # -- 8. K1's routes against the twin -------------------------------------
+    for i, (P, s, b, dt, swap, want) in enumerate([
+            (1, 245, 10, torch.float64, False, "large"),
+            (1, 245, 10, torch.float64, True, "large"),
+            (1, 245, 10, torch.float32, False, "large"),
+            (1, 245, 10, torch.float32, True, "large"),
+            (2, 512, 10, torch.float64, True, "large"),
+            (1, 512, 10, torch.float32, True, "large"),
+            (3, 124, 12, torch.float64, True, "tile")]):
+        way, err = gj_case(8, P, s, b, dt, swap, seed=20 + i)
+        check(way == want, f"K1 at s={s}, b={b}: route {way}, not {want}")
+        if (s, dt, swap) == (245, torch.float64, False):
+            errs["gj_large"] = err
+    check(gj_cuda.route(513, 10, f64, "cuda") == "inv",
+          "K1 above s = 512 does not take torch.linalg.inv")
+    for b in (10, 12):
+        ways = [gj_cuda.route(s, b, f64, "cuda") for s in range(1, 513)]
+        top = ways.count("tile")
+        check(ways == ["tile"] * top + ["large"] * (512 - top),
+              f"K1's routes at b={b} are not one size rule")
+        print(f"[8] K1 routes at b={b}, f64: register kernel for s <= {top}, "
+              f"large kernel for {top} < s <= 512, torch.linalg.inv above")
+
+    # -- 9. times at this slice's shapes -------------------------------------
+    M, B = gj_inputs(1, 245, 10, f64, seed=31)
+    times["gj_large"] = time_gj(M, B, "gj_large_kernel")
+    M, B = gj_inputs(100, 124, 12, f64, seed=30)
+    D, U, r = (a[0] for a in thomas_inputs(1, 101, 6, f64, seed=32))
+    for name, t, what in (
+            ("gj", time_gj(M, B, "gj_interior_kernel"), "K1 register "
+             "kernel, P=100, s=124, b=12 (nx6-1000 and Crane interiors)"),
+            ("gj_large", times["gj_large"], "K1 large kernel, P=1, s=245, "
+             "b=10 (CranePar's interior)"),
+            ("thomas", time_thomas(D, U, r), "K2, N=101, n=6 (the nx6-1000 "
+             "master)")):
+        show(9, name, t, f"f64, {what}, on {smi}")
+
+    # -- 10. the nx6-1000 KKT link ---------------------------------------------
+    link_ms, res = nx6_link()
+    print(f"[10] nx6-1000 PartitionedKKT(L=10) f64 link: {link_ms:.3f} ms "
+          f"per link (median of 5, synchronized), KKT residual {res:.2e}")
+    check(res < 1e-6, f"nx6-1000 KKT residual {res}")
+
+    # -- 11. Crane K=50 --------------------------------------------------------
+    omu = omu_programs()
+    counts = omu_drive(11, "Crane", omu["Crane"], simulate=True)
+    check(counts["gj"]["tile"] > 0 and counts["thomas"] > 0,
+          f"the Crane solve skipped a kernel: {counts}")
+
+    # -- 12. the odc suite -----------------------------------------------------
+    for name in ("BatchReactor", "Bio", "TP383omu", "HS99omu", "CranePar"):
+        c = omu_drive(12, name, omu[name], simulate=False)
+        if name == "CranePar":
+            check(c["gj"]["large"] > 0,
+                  f"CranePar's interior skipped the large K1 kernel: {c}")
+            launches["gj_large"] = c["gj"]["large"]
+
     def row(key, name, replaces):
         t = times[key]
         return {"name": name, "route": "cuda",
@@ -329,6 +572,8 @@ def main():
                 "device_ms": t["device_ms"], "single_ms": t["single_ms"]}
 
     kernels = [row("gj", "gj_interior", "hqp_tpu/ops/gj_pallas.py:138"),
+               row("gj_large", "gj_interior_large",
+                   "hqp_tpu/ops/gj_pallas.py:138"),
                row("thomas", "thomas", "hqp_tpu/ops/thomas_pallas.py:128")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,15 +4,25 @@ The module layout and names follow ``hqp_tpu`` one to one, so each piece
 has an obvious counterpart in the JAX reference package:
 
   ops/       small-block linear algebra (``smalllin``, ``blocktri``) and the
-             two hand-written CUDA kernels with their plain twins:
-             ``gj_cuda`` (batched pivoted Gauss-Jordan interior inverse) and
-             ``thomas_cuda`` (batched block-Thomas master solve); ``_build``
-             compiles ``csrc/*.cu`` with nvcc at first CUDA use
+             hand-written CUDA kernels with their plain twins: ``gj_cuda``
+             (batched pivoted Gauss-Jordan interior inverse; a register
+             kernel for tiles that fit a block, a global-memory kernel up
+             to s = 512) and ``thomas_cuda`` (batched block-Thomas master
+             solve); ``_build`` compiles ``csrc/*.cu`` with nvcc at first
+             CUDA use
   qp/        ``StageQP`` IR, shared KKT helpers, ``PartitionedKKT``,
              ``Mehrotra`` interior point
   sqp/       ``SqpSolver``/``SqpPowell`` and the block BFGS Hessian
   docp/      stage-wise ``Docp`` programs with ``torch.func`` derivatives
-  models/    ``PrgDID``
+  omu/       the Omuses front end: ``OmuProgram`` (continuous-time
+             multistage programs) and the fixed-step integrators
+             ``Euler``, ``RK4`` and ``IMP`` (registered under
+             ``prg_integrator``)
+  models/    ``PrgDID``, ``PrgCrane`` and the odc suite (``omu_suite``:
+             ``PrgBatchReactor``, ``PrgBio``, ``PrgTP383omu``,
+             ``PrgHS99omu``, ``PrgCranePar``), registered under
+             ``prg_name`` as DID, Crane, BatchReactor, Bio, TP383omu,
+             HS99omu and CranePar
   utils/     registry and masked reductions over dataclasses of tensors
   convert    numpy -> port data (tests feed both packages the same data)
 

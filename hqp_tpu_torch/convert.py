@@ -43,6 +43,14 @@ def eq(src: dict, device="cuda") -> dict:
     return {k: tensor(v, device) for k, v in src.items()}
 
 
+def program_record(src) -> np.ndarray:
+    """A program's measurement record (``s_ref`` of a CranePar program of
+    either package after its setup, or the array itself) as a host float64
+    array: what ``PrgCranePar(s_ref=...)`` takes, so that both packages
+    fit the same measurements."""
+    return np.array(getattr(src, "s_ref", src), dtype=np.float64)
+
+
 def stage_qp(src, device="cuda") -> StageQP:
     """Any object with StageQP's attribute names -> StageQP."""
     kw = {}

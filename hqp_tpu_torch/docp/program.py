@@ -61,6 +61,11 @@ class Docp:
         Missing bounds default to +-inf, missing inits to zero."""
         return {}
 
+    def _setup_vars_processed(self):
+        """Hook between the user's setup_vars and the assembly; the Omu
+        layer widens per-sample-period constraint bounds here."""
+        return self.setup_vars()
+
     def f(self, k, x, u):
         raise NotImplementedError
 
@@ -86,7 +91,7 @@ class Docp:
         """Initial iterate, bounds and QP skeleton (hqp/Hqp_Docp.C:400-758),
         computed in host numpy and placed on the device once."""
         K, K1, nx, nu, mc = self.K, self.K + 1, self.nx, self.nu, self.mc
-        v = self.setup_vars()
+        v = self._setup_vars_processed()
         inf = np.inf
 
         def get(key, shape, default):

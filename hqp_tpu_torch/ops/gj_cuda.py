@@ -1,18 +1,21 @@
 """Batched pivoted Gauss-Jordan interior inverse: CUDA kernel K1 + twin.
 
 Port of the Pallas TPU kernel ``hqp_tpu/ops/gj_pallas.py::interior_factor``
-(kernel source: ``csrc/gj_interior.cu``).  Per matrix of a batch it
-returns ``Minv = MII^-1``, ``W = Minv MIB`` and ``Schur = MIB' W``.
+(kernel sources: ``csrc/gj_interior.cu`` and, for interiors too large for
+its tile, ``csrc/gj_interior_large.cu``; :func:`route` picks one by size).
+Per matrix of a batch it returns ``Minv = MII^-1``, ``W = Minv MIB`` and
+``Schur = MIB' W``.
 
-:func:`interior_factor` launches the kernel for CUDA tensors and takes the
-plain version :func:`interior_factor_plain` only for CPU tensors.  Both run
+:func:`interior_factor` launches a kernel for CUDA tensors and takes the
+plain version :func:`interior_factor_plain` only for CPU tensors.  All run
 the same algorithm: Gauss-Jordan IN PLACE with partial pivoting (pivot =
-first max of |column k| over rows >= k, NaN never wins), so both take the
+first max of |column k| over rows >= k, NaN never wins), so all take the
 TPU kernel's pivot sequence, and round the elimination alike, so their
-inverses agree to the last bit.  The twin swaps rows and undoes the
-interchanges on the columns at the end; the kernel leaves the rows where
-they are and reads the result out through the interchanges.  Unlike the
-TPU kernel, the port keeps the input dtype: float64 or float32.
+inverses agree to the last bit.  The twin and the large kernel swap rows
+and undo the interchanges on the columns at the end; the register kernel
+leaves the rows where they are and reads the result out through the
+interchanges.  Unlike the TPU kernel, the port keeps the input dtype:
+float64 or float32.
 """
 
 from __future__ import annotations
@@ -21,8 +24,14 @@ import torch
 
 from hqp_tpu_torch.ops import _build
 
-#: kernel launches since import (the main path adds one per factorization)
+#: the largest interior of the "large" route (the TPU kernel's limit)
+MAX_LARGE = 512
+#: launches since import, one counter per route (the main path adds one
+#: per factorization): the register kernel, the large kernel, and the
+#: torch.linalg.inv calls above MAX_LARGE
 LAUNCHES = 0
+LAUNCHES_LARGE = 0
+LAUNCHES_INV = 0
 
 
 def interior_factor_plain(MII, MIB):
@@ -64,18 +73,35 @@ def interior_factor_plain(MII, MIB):
             Schur.reshape(*lead, b, b))
 
 
-def _smem_fn(lib, dtype):
-    return lib.hqp_gj_interior_smem_f64 if dtype == torch.float64 else \
+def route(s, b, dtype, device) -> str:
+    """Which route a CUDA batch of interiors of size s with b coupling
+    columns takes, by an explicit size rule:
+
+    - ``"tile"``: the register kernel (``csrc/gj_interior.cu``) wherever
+      its tile fits one block's opt-in shared memory (on an H100, s up to
+      151 in f64 with b = 10);
+    - ``"large"``: the global-memory kernel (``csrc/gj_interior_large.cu``)
+      above that, up to ``MAX_LARGE`` = 512, the TPU kernel's own limit
+      (hqp_tpu/ops/gj_pallas.py:52-54);
+    - ``"inv"``: ``torch.linalg.inv`` above 512, as the JAX package
+      inverts outside its kernel (hqp_tpu/qp/kkt_partitioned.py:607)."""
+    limit = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    lib = _build.library()
+    smem = lib.hqp_gj_interior_smem_f64 if dtype == torch.float64 else \
         lib.hqp_gj_interior_smem_f32
+    if smem(s, b) <= limit:
+        return "tile"
+    return "large" if s <= MAX_LARGE else "inv"
 
 
 def interior_factor(MII, MIB):
     """(Minv, W, Schur) of every matrix of the batch.
 
     CPU tensors: :func:`interior_factor_plain`.  CUDA tensors: one launch
-    of the kernel over the flattened batch, or an exception -- never a
-    fallback."""
-    global LAUNCHES
+    of the route :func:`route` names over the flattened batch, or an
+    exception -- never a fallback from one route to another."""
+    global LAUNCHES, LAUNCHES_LARGE, LAUNCHES_INV
     if MII.device.type == "cpu" and MIB.device.type == "cpu":
         return interior_factor_plain(MII, MIB)
     if MII.device.type != "cuda" or MIB.device != MII.device:
@@ -92,24 +118,31 @@ def interior_factor(MII, MIB):
                          f"{tuple(MIB.shape)}; need [..., s, s], [..., s, b]")
     if not (MII.is_contiguous() and MIB.is_contiguous()):
         raise ValueError("interior_factor: inputs must be contiguous")
-    lib = _build.library()
-    limit = torch.cuda.get_device_properties(
-        MII.device).shared_memory_per_block_optin
     b = MIB.shape[-1]
-    if _smem_fn(lib, MII.dtype)(s, b) > limit:
-        raise ValueError(f"interior_factor: s = {s}, b = {b} needs more "
-                         f"shared memory than the device's {limit} bytes")
+    way = route(s, b, MII.dtype, MII.device)
+    if way == "inv":
+        Minv = torch.linalg.inv(MII)
+        W = Minv @ MIB
+        LAUNCHES_INV += 1
+        return Minv, W, MIB.transpose(-1, -2) @ W
+    lib = _build.library()
     nb = MII.numel() // (s * s)
     Minv = torch.empty_like(MII)
     W = torch.empty_like(MIB)
     Schur = torch.empty(MII.shape[:-2] + (b, b), dtype=MII.dtype,
                         device=MII.device)
-    fn = lib.hqp_gj_interior_f64 if MII.dtype == torch.float64 else \
-        lib.hqp_gj_interior_f32
+    f64 = MII.dtype == torch.float64
+    if way == "tile":
+        fn = lib.hqp_gj_interior_f64 if f64 else lib.hqp_gj_interior_f32
+    else:
+        fn = lib.hqp_gj_large_f64 if f64 else lib.hqp_gj_large_f32
     with torch.cuda.device(MII.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(MII.data_ptr(), MIB.data_ptr(), Minv.data_ptr(),
                  W.data_ptr(), Schur.data_ptr(), nb, s, b, stream)
-    _build.check(err, "gj_interior kernel launch")
-    LAUNCHES += 1
+    _build.check(err, f"gj_interior ({way}) kernel launch")
+    if way == "tile":
+        LAUNCHES += 1
+    else:
+        LAUNCHES_LARGE += 1
     return Minv, W, Schur

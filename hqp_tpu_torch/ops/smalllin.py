@@ -1,8 +1,8 @@
 """Small-matrix linear algebra, unrolled over the static block size.
 
 Port of ``hqp_tpu/ops/smalllin.py`` (``chol``, triangular solves,
-``cho_solve``; the pivot-free LU waits for the integrators
-that use it).  The per-stage blocks of the reference are tiny (a few to a
+``cho_solve`` and the pivot-free LU routines of the implicit
+integrators).  The per-stage blocks of the reference are tiny (a few to a
 few dozen rows), so the routines unroll over the static dimension and
 broadcast over any leading batch axes ([K] stages, [P] partitions, ...).
 Above ``_UNROLL_LIMIT`` they defer to ``torch.linalg``.
@@ -92,3 +92,60 @@ def tri_upper_solve(L, b):
 def cho_solve(L, b):
     """Solve A x = b given L = chol(A)."""
     return tri_upper_solve(L, tri_lower_solve(L, b))
+
+
+def lu_nopiv(A):
+    """Unrolled LU WITHOUT pivoting (Doolittle) for small well-conditioned
+    systems (integrator Newton matrices); one packed matrix (L below the
+    diagonal, U on and above).  Built out of place, step by step, so that
+    it composes with ``torch.func`` transforms."""
+    n = A.shape[-1]
+    if n > _UNROLL_LIMIT:
+        raise ValueError("lu_nopiv: n too large to unroll")
+    M = A
+    for k in range(n):
+        piv = M[..., k, k]
+        lcol = M[..., k + 1:, k] / piv[..., None]
+        rest = M[..., k + 1:, k + 1:] - \
+            lcol[..., :, None] * M[..., k, k + 1:][..., None, :]
+        low = torch.cat([M[..., k + 1:, :k], lcol[..., None], rest], dim=-1)
+        M = torch.cat([M[..., :k + 1, :], low], dim=-2)
+    return M
+
+
+def lu_nopiv_solve(M, b):
+    """Solve with the packed factor from :func:`lu_nopiv`."""
+    n = M.shape[-1]
+    if n == 0:
+        return b
+    vec = b.dim() == M.dim() - 1
+    if vec:
+        b = b[..., None]
+    # forward: L y = b (unit diagonal)
+    ys = []
+    for i in range(n):
+        v = b[..., i, :]
+        for k in range(i):
+            v = v - M[..., i, k, None] * ys[k]
+        ys.append(v)
+    # backward: U x = y
+    xs = [None] * n
+    for i in reversed(range(n)):
+        v = ys[i]
+        for k in range(i + 1, n):
+            v = v - M[..., i, k, None] * xs[k]
+        xs[i] = v / M[..., i, i, None]
+    x = torch.stack(xs, dim=-2)
+    return x[..., 0] if vec else x
+
+
+def solve_nopiv(A, b):
+    """Solve a general small A x = b by unrolled pivot-free LU."""
+    return lu_nopiv_solve(lu_nopiv(A), b)
+
+
+def inv_nopiv(A):
+    """Inverse of small matrices by unrolled pivot-free LU."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
+    return lu_nopiv_solve(lu_nopiv(A), eye)

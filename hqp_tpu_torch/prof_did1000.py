@@ -1,6 +1,7 @@
-"""Where the time of a DID-1000 solve goes on the card.
+"""Where the time of a DID-1000 (or Crane) solve goes on the card.
 
     python -m hqp_tpu_torch.prof_did1000 [--kmax 1000] [--device cuda]
+    python -m hqp_tpu_torch.prof_did1000 --program Crane [--kmax 50]
 
 Phases, each printed on lines of its own:
   1. chained KKT factor+solve links at the point of ``bench.py``'s
@@ -16,8 +17,10 @@ Phases, each printed on lines of its own:
      iteration, and the kernels with the most device time;
   4. the same solve at the default QP tolerance (1e-9), which is expected
      to end in SqpError("subiters"), with the last QP's complementarity.
-Phase 3 needs a CUDA device and is skipped with ``--device cpu``, where
-the script serves only to check itself at a small ``--kmax``.
+``--program Crane`` runs phases 2 and 3 on ``PrgCrane(K=kmax)`` (default
+QP tolerance; phases 1 and 4 are DID's).  Phase 3 needs a CUDA device and
+is skipped with ``--device cpu``, where the script serves only to check
+itself at a small ``--kmax``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import time
 import torch
 
 from hqp_tpu_torch.docp.program import Docp
+from hqp_tpu_torch.models.crane import PrgCrane
 from hqp_tpu_torch.models.did import PrgDID
 from hqp_tpu_torch.qp import kkt as K_
 from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
@@ -135,16 +139,22 @@ class LayerTimers:
         self._saved.clear()
 
 
-def solve_once(kmax, device, **kw):
-    s = SqpPowell(PrgDID(kmax=kmax, device=device), max_iters=50, **kw)
+def solve_once(kmax, device, program="DID"):
+    """One init/simulate/solve: DID at the recorded reference runs'
+    qp_eps = 1e-7 (ROADMAP Q3 R7), Crane at the defaults."""
+    if program == "Crane":
+        s = SqpPowell(PrgCrane(K=kmax, device=device), max_iters=100)
+    else:
+        s = SqpPowell(PrgDID(kmax=kmax, device=device), max_iters=50,
+                      qp_eps=1e-7)
     s.init()
     s.simulate()
     return s, s.solve()
 
 
-def layer_split(kmax, device):
+def layer_split(kmax, device, program):
     dev = torch.device(device)
-    solve_once(kmax, device, qp_eps=1e-7)            # warm-up
+    solve_once(kmax, device, program)                # warm-up
     lt = LayerTimers(dev)
     lt.wrap(Docp, "simulate", "simulate")
     lt.wrap(Docp, "make_qp", "make_qp")
@@ -156,7 +166,7 @@ def layer_split(kmax, device):
     sync(dev)
     t0 = time.perf_counter()
     try:
-        s, res = solve_once(kmax, device, qp_eps=1e-7)
+        s, res = solve_once(kmax, device, program)
         sync(dev)
     finally:
         lt.restore()
@@ -171,14 +181,14 @@ def layer_split(kmax, device):
     print(f"[2]   rest (SQP, BFGS, setup): {rest:.1f} ms")
 
 
-def device_trace(kmax, device, top=12):
+def device_trace(kmax, device, program, top=12):
     from torch.profiler import ProfilerActivity, profile
 
-    solve_once(kmax, device, qp_eps=1e-7)            # warm-up
+    solve_once(kmax, device, program)                # warm-up
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        s, res = solve_once(kmax, device, qp_eps=1e-7)
+        s, res = solve_once(kmax, device, program)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = [e for e in prof.events()
@@ -202,7 +212,9 @@ def device_trace(kmax, device, top=12):
                                 key=lambda kv: -kv[1][0])[:top]:
         print(f"[3]   {us / 1e3:9.2f} ms {100 * us / max(busy, 1):5.1f}% "
               f"{n:7d}x {name[:90]}")
-    for tag, key in (("K1", "gj_interior_kernel"), ("K2", "thomas_kernel")):
+    for tag, key in (("K1", "gj_interior_kernel"),
+                     ("K1 large", "gj_large_kernel"),
+                     ("K2", "thomas_kernel")):
         us = sum(v[0] for k, v in by_name.items() if key in k)
         n = sum(v[1] for k, v in by_name.items() if key in k)
         print(f"[3]   {tag}: {us / 1e3:.2f} ms in {n} launches, "
@@ -228,19 +240,25 @@ def default_eps(kmax, device):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kmax", type=int, default=1000)
+    ap.add_argument("--program", choices=("DID", "Crane"), default="DID")
+    ap.add_argument("--kmax", type=int, default=None,
+                    help="stages (default 1000 for DID, 50 for Crane)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
+    did = args.program == "DID"
+    kmax = args.kmax or (1000 if did else 50)
     if args.device == "cuda":
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip())
-    chained_links(args.kmax, args.device)
-    layer_split(args.kmax, args.device)
+    if did:
+        chained_links(kmax, args.device)
+    layer_split(kmax, args.device, args.program)
     if args.device == "cuda":
-        device_trace(args.kmax, args.device)
-    default_eps(args.kmax, args.device)
+        device_trace(kmax, args.device, args.program)
+    if did:
+        default_eps(kmax, args.device)
 
 
 if __name__ == "__main__":

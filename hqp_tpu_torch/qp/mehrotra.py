@@ -13,9 +13,14 @@ vector to take the step branch and one to test the loop
 (:func:`~hqp_tpu_torch.utils.sync.host`), besides the refinement tests of
 the KKT backend.  The state scalars stay tensors, as in the reference.
 
+A program structurally without inequality rows takes the reference's
+equality-only branch: one Newton step per QP.  (A ``StageQP`` always
+carries its [K+1, nv] box groups, so its masked-off rows run the general
+iteration, in both packages.)
+
 Not ported yet: ``mod_terlaky``, ``gondzio_correctors > 0``,
 ``init_method != 0`` and ``cheap_predictor`` (constructing with them
-raises ``NotImplementedError``), and the equality-only program branch.
+raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -128,8 +133,10 @@ class Mehrotra:
 
     def cold_start(self, qp, state: IPState):
         if self._no_ineq(qp):
-            raise NotImplementedError(
-                "Mehrotra: programs without inequality rows are not ported")
+            # program without inequality constraints (C:322-327)
+            return dataclasses.replace(
+                state, x=qp.zero_x(), y=mk.fill(qp.eq_offsets(), 0.0),
+                **self._scalars(qp))
         mask = qp.ineq_mask()
         m = torch.clamp(mk.count(mask), min=1.0)
         ones = mk.where(mask, mk.fill(mask, 1.0), 1.0)
@@ -174,6 +181,8 @@ class Mehrotra:
     # -- one predictor-corrector step (Hqp_IpsMehrotra.C:355-693) ------------
 
     def step(self, qp, state: IPState) -> IPState:
+        if self._no_ineq(qp):
+            return self._step_eq_only(qp, state)
         eps = self.eps
         mask = qp.ineq_mask()
         m = torch.clamp(mk.count(mask), min=1.0)
@@ -279,6 +288,29 @@ class Mehrotra:
             w=sel(w, w_n), alpha=alpha,
             iter=base.iter + (~bad).to(torch.int64),
             result=torch.where(bad, DEGENERATE, base.result))
+
+    def _step_eq_only(self, qp, state: IPState) -> IPState:
+        """Newton step for a program without inequality constraints
+        (Hqp_IpsMehrotra.C:364-415): one factor+solve, then optimal."""
+        mask = qp.ineq_mask()
+        x, y = state.x, state.y
+        r1 = torch.where(qp.x_mask(),
+                         qp.matvec_Q(x) + qp.c - qp.matvec_eqT(y), 0.0)
+        r2 = mk.scale(-1.0, qp.eval_eq(x))
+        r3 = mk.fill(mask, 0.0)
+        r4 = mk.fill(mask, 0.0)
+        z = w = mk.fill(mask, 1.0)
+        fac = self.backend.factor(qp, z, w, mask)
+        dx, dy, _, _ = self.backend.solve(fac, qp, z, w, mask,
+                                          r1, r2, r3, r4)
+        bad = ~(torch.isfinite(mk.norm_inf(dx))
+                & torch.isfinite(mk.norm_inf(dy)))
+        return dataclasses.replace(
+            state, x=torch.where(bad, x, x + dx),
+            y=mk.tmap(lambda a, b: torch.where(bad, a, a + b), y, dy),
+            iter=state.iter + (~bad).to(torch.int64),
+            result=torch.where(bad, DEGENERATE, OPTIMAL),
+            test=mk.norm_inf(r1) + mk.norm_inf(r2, qp.eq_mask()))
 
     def _adaptive_alpha(self, z, w, dz, dw, mask, m):
         """Mehrotra's adaptive stepsize heuristic (C:625-669); the groups

@@ -1,11 +1,12 @@
 """The port's solve path against the JAX package, layer by layer.
 
-Each layer of the DID solve path (PartitionedKKT -> Mehrotra -> Docp /
-PrgDID -> BFGS -> SqpPowell) gets the same seeded inputs in both
-packages (handed over as numpy through ``hqp_tpu_torch.convert``) and is
-compared at a stated tolerance.  The port's entry points default to the
-card, so every test here asks for the CPU (``device="cpu"``, through the
-helpers below), where the kernel wrappers take their plain twins.
+Each layer of the solve path (PartitionedKKT -> Mehrotra -> Docp /
+PrgDID / the Omuses programs -> BFGS -> SqpPowell) gets the same seeded
+inputs in both packages (handed over as numpy through
+``hqp_tpu_torch.convert``) and is compared at a stated tolerance.  The
+port's entry points default to the card, so every test here asks for the
+CPU (``device="cpu"``, through the helpers below), where the kernel
+wrappers take their plain twins.
 """
 
 import os
@@ -19,6 +20,8 @@ import torch
 import hqp_tpu  # noqa: F401  (x64)
 import jax
 import jax.numpy as jnp
+from hqp_tpu.models import omu_suite as JS
+from hqp_tpu.models.crane import PrgCrane as JPrgCrane
 from hqp_tpu.models.did import PrgDID as JPrgDID
 from hqp_tpu.qp.kkt_partitioned import PartitionedKKT as JPartitionedKKT
 from hqp_tpu.qp.program import IneqGroups as JIneqGroups
@@ -27,11 +30,14 @@ from hqp_tpu.sqp.powell import SqpPowell as JSqpPowell
 from tests.test_kkt import random_rhs, random_stage_qp, random_zw
 
 from hqp_tpu_torch import convert
+from hqp_tpu_torch.models import omu_suite as S
+from hqp_tpu_torch.models.crane import PrgCrane
 from hqp_tpu_torch.models.did import PrgDID
 from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
 from hqp_tpu_torch.qp.mehrotra import Mehrotra, RESULT_STRINGS
 from hqp_tpu_torch.sqp.hessian import BFGS
 from hqp_tpu_torch.sqp.powell import SqpPowell
+from hqp_tpu_torch.utils.registry import modules
 
 _G = ("bl", "bu", "gl", "gu")
 CPU = "cpu"
@@ -83,11 +89,14 @@ def _compare_kkt(jax_sol, port_sol, tol):
 
 @pytest.mark.parametrize("K,nx,nu,mc,L", [
     (8, 3, 2, 2, 4), (12, 2, 1, 1, 3), (6, 2, 2, 0, 6), (5, 3, 1, 1, 1),
-    (10, 2, 1, 0, 4)])
+    (10, 2, 1, 0, 4), (25, 5, 0, 0, 16), (20, 6, 1, 0, 16)])
 def test_partitioned_kkt_matches_reference_f64(K, nx, nu, mc, L):
     """f64 factors: the reference inverts the interiors with
     jnp.linalg.inv and reduces the master by CR, the port through the K1
-    and K2 twins; both are refined to 1e-10, so they agree at 1e-8."""
+    and K2 twins; both are refined to 1e-10, so they agree at 1e-8.  The
+    last two cases are CranePar's layout (nu = 0: one partition of
+    L = 25, s = 245, an empty terminal u-block) and the crane's (L = 10,
+    s = 124, master blocks of n = 6)."""
     (qp, z, w, mask, *r), (tqp, tz, tw, tmask, *tr) = _kkt_inputs(
         K, nx, nu, mc, seed=K + L)
     ref = _jax_kkt(JPartitionedKKT(L=L), qp, z, w, mask, *r)
@@ -153,6 +162,61 @@ def test_docp_did_matches_reference(kmax, cns):
                                       for g, a in z.items()}))
     gt = tp.eval_grd_L(vt, convert.eq(y, CPU), convert.ineq(z, CPU))
     _close(gt, gj, 1e-12)
+
+
+# -- the Omuses programs -----------------------------------------------------------
+
+
+def _omu_pair(name):
+    """(reference program, port program, tolerance) at a small size; the
+    CranePar pair fits the same measurement record."""
+    if name == "Crane":
+        return JPrgCrane(K=10), PrgCrane(K=10, device=CPU), 1e-12
+    if name == "BatchReactor":
+        return (JS.PrgBatchReactor(K=8), S.PrgBatchReactor(K=8, device=CPU),
+                1e-12)
+    if name == "Bio":                 # values go through IMP's Newton solve
+        return JS.PrgBio(K=6), S.PrgBio(K=6, device=CPU), 1e-10
+    if name == "TP383omu":
+        return JS.PrgTP383omu(), S.PrgTP383omu(device=CPU), 1e-12
+    if name == "HS99omu":
+        return JS.PrgHS99omu(), S.PrgHS99omu(device=CPU), 1e-12
+    jp = JS.PrgCranePar(K=5)
+    jp.setup()
+    tp = S.PrgCranePar(K=5, s_ref=convert.program_record(jp), device=CPU)
+    return jp, tp, 1e-12
+
+
+@pytest.mark.parametrize("name", ["Crane", "BatchReactor", "Bio",
+                                  "TP383omu", "HS99omu", "CranePar"])
+def test_omu_program_matches_reference(name):
+    """setup, eval_vals, eval_derivs (vmap of jacfwd through the
+    integrator), simulate and make_qp at a perturbed iterate."""
+    jp, tp, tol = _omu_pair(name)
+    x0j, x0t = jp.setup(), tp.setup()
+    _close(x0t, x0j, 0.0)
+    if hasattr(jp, "ts"):           # the time grid
+        _close(tp.ts, jp.ts, tol)
+    rng = np.random.default_rng(len(name))
+    v = np.asarray(x0j) + 0.1 * rng.standard_normal(x0j.shape)
+    vj, vt = jnp.asarray(v), _c(v)
+    for a, b in zip(tp.eval_vals(vt), jp.eval_vals(vj)):
+        _close(a, b, tol)
+    for a, b in zip(tp.eval_derivs(vt), jp.eval_derivs(vj)):
+        _close(a, b, tol)
+    _close(tp.simulate(vt), jp.simulate(vj), tol)
+    fj, qpj = jp.make_qp(vj)
+    ft, qpt = tp.make_qp(vt)
+    _close(ft, fj, tol)
+    for field in ("c", "A", "b", "lb", "ub", "C", "d_lo", "d_up",
+                  "var_mask", "con_mask"):
+        _close(getattr(qpt, field), getattr(qpj, field), tol)
+    if name == "CranePar":
+        # the port's own record: its RK4 rollout of the true model plus the
+        # same seeded noise
+        own = S.PrgCranePar(K=5, device=CPU)
+        own.setup()
+        _close(own.s_ref, jp.s_ref, 1e-12)
 
 
 def test_bfgs_update_matches_reference():
@@ -225,6 +289,75 @@ def test_sqp_did30_matches_reference(did30):
     assert RESULT_STRINGS[ts.status] == "optimal"
 
 
+@pytest.fixture(scope="module")
+def cranepar():
+    """Both packages' SqpPowell on PrgCranePar() fitting the reference's
+    measurement record, plus the reference's first QP (nu = 0 and no
+    finite bounds: every inequality row is masked off)."""
+    jp = JS.PrgCranePar()
+    js = JSqpPowell(jp, max_iters=100)
+    js.init()
+    js.qp_update()
+    jqp0, jst0 = js.qp, js.ip_state
+    jres = js.solve()
+    ts = SqpPowell(S.PrgCranePar(s_ref=convert.program_record(jp),
+                                 device=CPU), max_iters=100)
+    ts.init()
+    tres = ts.solve()
+    return dict(js=js, jres=jres, jqp0=jqp0, jst0=jst0, ts=ts, tres=tres)
+
+
+def test_mehrotra_cranepar_first_qp_matches_reference(cranepar):
+    """CranePar's first QP (interior s = 245): the reference's Mehrotra
+    solve and the port's agree at 1e-10, and so does the equality-only
+    Newton step (Hqp_IpsMehrotra.C:364-415) from the same cold state; the
+    port's solve loop ends after that one step when the program has no
+    inequality rows."""
+    jm = cranepar["js"].qp_solver
+    ref = jm.solve(cranepar["jqp0"], cranepar["jst0"])
+    qp = convert.stage_qp(cranepar["jqp0"], CPU)
+    m = Mehrotra(eps=1e-9, max_iters=50).with_backend(PartitionedKKT())
+    out = m.solve(qp, m.init_state(qp))
+    assert int(out.result) == int(ref.result) == 0
+    assert int(out.iter) == int(ref.iter)
+    _close(out.x, ref.x, 1e-10)
+    for k in ("dyn", "fix"):
+        _close(out.y[k], ref.y[k], 1e-10)
+
+    jeq = jm._step_eq_only(cranepar["jqp0"], jm.init_state(cranepar["jqp0"]))
+    teq = m._step_eq_only(qp, m.init_state(qp))
+    assert int(teq.result) == int(jeq.result) == 0
+    assert int(teq.iter) == int(jeq.iter) == 1
+    _close(teq.x, jeq.x, 1e-10)
+    for k in ("dyn", "fix"):
+        _close(teq.y[k], jeq.y[k], 1e-10)
+    _close(teq.test, jeq.test, 1e-10)
+
+
+def test_mehrotra_eq_only_loop(monkeypatch):
+    """A program structurally without inequality rows takes the
+    equality-only branch in cold_start and step: one Newton step, then
+    optimal (the reference's m == 0 case)."""
+    qp = convert.stage_qp(random_stage_qp(6, 2, 1, 0, seed=5), CPU)
+    m = Mehrotra(eps=1e-9, max_iters=50).with_backend(PartitionedKKT(L=3))
+    step = m._step_eq_only(qp, m.init_state(qp))
+    monkeypatch.setattr(Mehrotra, "_no_ineq", staticmethod(lambda qp: True))
+    out = m.solve(qp, m.init_state(qp))
+    assert RESULT_STRINGS[int(out.result)] == "optimal"
+    assert int(out.iter) == 1
+    _close(out.x, step.x, 0.0)
+
+
+def test_sqp_cranepar_matches_reference(cranepar):
+    """PrgCranePar() (nu = 0; its one interior of s = 245 is what the
+    large K1 kernel takes on the card): the same result, SQP and IP
+    iterations; f within 1e-8 relative."""
+    js, ts = cranepar["js"], cranepar["ts"]
+    assert cranepar["jres"] == cranepar["tres"] == "optimal"
+    assert (ts.iter, ts.qp_iters_total) == (js.iter, js.qp_iters_total)
+    _close(float(ts.f), float(js.f), 0.0, rtol=1e-8)
+
+
 def test_sqp_did60_oracle():
     """PrgDID(kmax=60) with its path constraint: the SLSQP-validated
     objective of tests/test_sqp_did.py."""
@@ -238,15 +371,33 @@ def test_sqp_did60_oracle():
     np.testing.assert_allclose(float(s.f), 98.4, rtol=1e-6)
 
 
-@pytest.mark.parametrize("case", ["explicit", "default"])
+#: the programs and integrators of the Omuses slice, by registry name
+OMU_PROGRAMS = ("Crane", "BatchReactor", "Bio", "TP383omu", "HS99omu",
+                "CranePar")
+
+
+@pytest.mark.parametrize("case", ["explicit", "default", "omu"])
 def test_cuda_device_refused_without_card(monkeypatch, case):
     """Asking for the card where there is none raises; nothing carries on
     on the CPU.  With no ``device`` the entry points ask for the card, and
-    they build on the CPU only when the caller names it."""
+    they build on the CPU only when the caller names it.  The registry
+    holds every program and integrator of the Omuses slice, and each
+    program refuses the card it does not have."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     if case == "explicit":
         with pytest.raises(RuntimeError):
             PrgDID(kmax=10, device="cuda")
+        return
+    if case == "omu":
+        assert set(OMU_PROGRAMS) <= set(modules.names("prg_name"))
+        assert {"Euler", "RK4", "IMP"} <= set(modules.names("prg_integrator"))
+        for name in OMU_PROGRAMS:
+            with pytest.raises(RuntimeError):
+                modules.create("prg_name", name, device="cuda")
+            with pytest.raises(RuntimeError):
+                modules.create("prg_name", name)
+            prg = modules.create("prg_name", name, device=CPU)
+            assert prg.device.type == "cpu"
         return
     with pytest.raises(RuntimeError):
         PrgDID(kmax=10)
@@ -267,6 +418,8 @@ def test_port_imports_no_jax():
     subprocess.run(
         [sys.executable, "-c",
          "import sys, hqp_tpu_torch, hqp_tpu_torch.sqp.powell, "
-         "hqp_tpu_torch.models.did, hqp_tpu_torch.convert; "
+         "hqp_tpu_torch.models.did, hqp_tpu_torch.models.crane, "
+         "hqp_tpu_torch.models.omu_suite, hqp_tpu_torch.omu.program, "
+         "hqp_tpu_torch.convert; "
          "assert 'jax' not in sys.modules, 'jax imported'"],
         check=True, env=env, cwd=root, timeout=120)
