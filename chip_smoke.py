@@ -21,14 +21,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   7. SqpPowell(PrgDID(kmax=1000)) on the card, init/simulate/solve cold
      then warm: optimal at the reference objective, with both kernels'
      launch counts, host syncs per IP iteration and solve times;
-  8. K1's routes against the twin: the large kernel at s = 245, b = 10
-     (f64 and f32, with and without a forced row swap) and at s = 512, the
-     register kernel at the crane's s = 124, b = 12; each case checks the
-     route it took and that route's launch counter;
+  8. K1's routes against the twin: the large (cluster) kernel at s = 152,
+     the first large size at b = 10, at s = 245 (f64 and f32, with and
+     without a forced row swap, and a batch of 3 clusters) and at s = 512
+     (f64 at P = 2 and f32), Minv equal to the last bit; the register
+     kernel at the crane's s = 124, b = 12; each case checks the route it
+     took and that route's launch counter and prints the cluster size;
+     the wrapper's copy of the cluster kernel's shared-memory layout
+     against the kernel's own;
   9. the measures of phase 5 at this slice's shapes: the register kernel at
      P = 100, s = 124, b = 12 (the crane's interior at 1000 stages), the
-     large kernel at P = 1, s = 245, b = 10 (CranePar's interior), K2 at
-     N = 101, n = 6;
+     large kernel at P = 1, s = 245, b = 10 (CranePar's interior) and at
+     P = 2, s = 512, K2 at N = 101, n = 6; the cluster kernel's device
+     time at each cluster size (4, 8, 16) at s = 245 and at the crane's
+     P = 5, s = 124, b = 12 (for the record: that size takes the register
+     kernel);
  10. one f64 factor+solve link of PartitionedKKT(L=10) on bench.py's
      nx6-1000 stage QP (the crane's block sizes at 1000 stages), gated on
      its KKT residual, with ms per link;
@@ -37,7 +44,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      host syncs per IP iteration;
  12. BatchReactor, Bio, TP383omu, HS99omu and CranePar (init/solve), each
      optimal at its reference objective; CranePar's interior (s = 245)
-     must go through the large K1 kernel.
+     must go through the large K1 kernel, 20 launches a solve.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -87,6 +94,11 @@ REF_OMU = {
 }
 #: objective tolerance of the suite's drives (relative)
 OMU_RTOL = 1e-6
+#: CranePar's large-route K1 launches in one solve (one a factorization)
+CRANEPAR_LARGE = 20
+#: the large K1 kernel's W and Schur against the twin's (relative): sums in
+#: another order; its Minv must equal the twin's to the last bit
+LARGE_WS_TOL = {torch.float64: 1e-14, torch.float32: 1e-6}
 
 
 def check(cond, msg):
@@ -395,9 +407,9 @@ def main():
              (2, 124, 4, torch.float64, True),
              (1, 48, 4, torch.float64, True)]
     def gj_case(phase, P, s, b, dt, swap, seed):
-        """K1 (whichever route the size takes) against the twin; returns
-        the route, the largest absolute error of Minv and the launches
-        of each route counted by this one call."""
+        """K1 (whichever route the size takes) against the twin, with the
+        launches of each route counted by this one call; returns the
+        route and the largest absolute error of Minv."""
         M, B = gj_inputs(P, s, b, dt, seed=seed, swap=swap)
         before = gj_launches()
         out = gj_cuda.interior_factor(M, B)
@@ -408,15 +420,24 @@ def main():
         eye = torch.eye(s, dtype=dt, device="cuda")
         resid = float((out[0] @ M - eye).abs().max())
         way = gj_cuda.route(s, b, dt, M.device)
+        emax = float((out[0] - ref[0]).abs().max())
+        cl = ""
+        if way == "large":
+            C = gj_cuda.cluster_size(s, b, dt, gj_cuda.smem_limit(M.device))
+            cl = f", cluster of {C}"
+            check(emax == 0.0 and max(e[1:]) <= LARGE_WS_TOL[dt],
+                  f"large K1 at s={s}: Minv max-abs error {emax}, rel W/Schur"
+                  f" {e[1:]}")
         print(f"[{phase}] K1 P={P} s={s} b={b} {str(dt)[6:]} swap={swap}: "
-              f"route {way}; rel err Minv {e[0]:.2e} W {e[1]:.2e} Schur "
-              f"{e[2]:.2e}; |Minv M - I| {resid:.2e}")
+              f"route {way}{cl}; Minv max-abs err {emax:.2e}; rel err Minv "
+              f"{e[0]:.2e} W {e[1]:.2e} Schur {e[2]:.2e}; |Minv M - I| "
+              f"{resid:.2e}")
         check(max(e) <= tol[dt], f"K1 disagrees with its twin ({e})")
         check(resid <= 100 * tol[dt], f"K1 inverse residual {resid}")
         counted = {k: after[k] - before[k] for k in after}
         check(counted == {k: int(k == way) for k in counted},
               f"K1 at s={s}: route {way} but launches {counted}")
-        return way, float((out[0] - ref[0]).abs().max())
+        return way, emax
 
     for i, (P, s, b, dt, swap) in enumerate(cases):
         way, err = gj_case(3, P, s, b, dt, swap, seed=i)
@@ -505,11 +526,20 @@ def main():
     did1000("warm")
 
     # -- 8. K1's routes against the twin -------------------------------------
+    lib = _build.library()
+    bad = [(s, b, dt, C) for dt, fn in ((f64, lib.hqp_gj_large_smem_f64),
+                                        (torch.float32,
+                                         lib.hqp_gj_large_smem_f32))
+           for b in (10, 12) for s in range(1, 513) for C in (4, 8, 16)
+           if fn(s, b, C) != gj_cuda.large_smem(s, b, dt, C)]
+    check(not bad, f"gj_cuda.large_smem disagrees with the kernel: {bad[:5]}")
     for i, (P, s, b, dt, swap, want) in enumerate([
+            (1, 152, 10, torch.float64, True, "large"),
             (1, 245, 10, torch.float64, False, "large"),
             (1, 245, 10, torch.float64, True, "large"),
             (1, 245, 10, torch.float32, False, "large"),
             (1, 245, 10, torch.float32, True, "large"),
+            (3, 245, 10, torch.float64, True, "large"),
             (2, 512, 10, torch.float64, True, "large"),
             (1, 512, 10, torch.float32, True, "large"),
             (3, 124, 12, torch.float64, True, "tile")]):
@@ -528,15 +558,39 @@ def main():
               f"large kernel for {top} < s <= 512, torch.linalg.inv above")
 
     # -- 9. times at this slice's shapes -------------------------------------
+    optin = gj_cuda.smem_limit("cuda")
+    cluster = gj_cuda.cluster_size(245, 10, f64, optin)
     M, B = gj_inputs(1, 245, 10, f64, seed=31)
-    times["gj_large"] = time_gj(M, B, "gj_large_kernel")
+    times["gj_large"] = time_gj(M, B, "gj_cluster_kernel")
+    for C in (4, 8, 16):
+        dev = device_ms(lambda: gj_cuda.large_factor(M, B, C),
+                        "gj_cluster_kernel")
+        print(f"[9] K1 cluster kernel P=1, s=245, b=10, f64, cluster of {C}"
+              f"{' (the rule)' if C == cluster else ''}: device {dev:.4f} ms"
+              f" per launch (profiler, 50 launches), {dev * 1e6 / 245:.0f} "
+              f"ns per elimination step; on {smi}")
+    M5, B5 = gj_inputs(2, 512, 10, f64, seed=33)
+    large512 = time_gj(M5, B5, "gj_cluster_kernel")
+    Mc, Bc = gj_inputs(5, 124, 12, f64, seed=34)
+    Cc = gj_cuda.cluster_size(124, 12, f64, optin)
+    dev = device_ms(lambda: gj_cuda.large_factor(Mc, Bc, Cc),
+                    "gj_cluster_kernel")
+    reg = device_ms(lambda: gj_cuda.interior_factor(Mc, Bc),
+                    "gj_interior_kernel")
+    print(f"[9] K1 cluster kernel at the crane's P=5, s=124, b=12, f64, "
+          f"cluster of {Cc}, called directly (the route rule gives this size"
+          f" the register kernel): device {dev:.4f} ms per launch; register "
+          f"kernel {reg:.4f} ms; on {smi}")
     M, B = gj_inputs(100, 124, 12, f64, seed=30)
     D, U, r = (a[0] for a in thomas_inputs(1, 101, 6, f64, seed=32))
     for name, t, what in (
             ("gj", time_gj(M, B, "gj_interior_kernel"), "K1 register "
              "kernel, P=100, s=124, b=12 (nx6-1000 and Crane interiors)"),
-            ("gj_large", times["gj_large"], "K1 large kernel, P=1, s=245, "
-             "b=10 (CranePar's interior)"),
+            ("gj_large", times["gj_large"], f"K1 large (cluster) kernel, "
+             f"cluster of {cluster}, P=1, s=245, b=10 (CranePar's interior)"),
+            ("gj_large", large512, "K1 large (cluster) kernel, cluster of "
+             f"{gj_cuda.cluster_size(512, 10, f64, optin)}, P=2, s=512, "
+             "b=10"),
             ("thomas", time_thomas(D, U, r), "K2, N=101, n=6 (the nx6-1000 "
              "master)")):
         show(9, name, t, f"f64, {what}, on {smi}")
@@ -557,8 +611,9 @@ def main():
     for name in ("BatchReactor", "Bio", "TP383omu", "HS99omu", "CranePar"):
         c = omu_drive(12, name, omu[name], simulate=False)
         if name == "CranePar":
-            check(c["gj"]["large"] > 0,
-                  f"CranePar's interior skipped the large K1 kernel: {c}")
+            check(c["gj"]["large"] == CRANEPAR_LARGE,
+                  f"CranePar's interior: {c['gj']['large']} large K1 "
+                  f"launches, not {CRANEPAR_LARGE}: {c}")
             launches["gj_large"] = c["gj"]["large"]
 
     def row(key, name, replaces):
@@ -572,8 +627,8 @@ def main():
                 "device_ms": t["device_ms"], "single_ms": t["single_ms"]}
 
     kernels = [row("gj", "gj_interior", "hqp_tpu/ops/gj_pallas.py:138"),
-               row("gj_large", "gj_interior_large",
-                   "hqp_tpu/ops/gj_pallas.py:138"),
+               dict(row("gj_large", "gj_interior_large",
+                        "hqp_tpu/ops/gj_pallas.py:138"), cluster=cluster),
                row("thomas", "thomas", "hqp_tpu/ops/thomas_pallas.py:128")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -37,15 +37,19 @@ SIGNATURES = {
     "hqp_gj_interior_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hqp_gj_interior_smem_f64": [_I, _I],
     "hqp_gj_interior_smem_f32": [_I, _I],
-    "hqp_gj_large_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "hqp_gj_large_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "hqp_gj_large_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "hqp_gj_large_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "hqp_gj_large_smem_f64": [_I, _I, _I],
+    "hqp_gj_large_smem_f32": [_I, _I, _I],
     "hqp_thomas_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hqp_thomas_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hqp_thomas_plan_f64": [_I, _I],
     "hqp_thomas_plan_f32": [_I, _I],
 }
 _RESTYPES = {"hqp_gj_interior_smem_f64": ctypes.c_size_t,
-             "hqp_gj_interior_smem_f32": ctypes.c_size_t}
+             "hqp_gj_interior_smem_f32": ctypes.c_size_t,
+             "hqp_gj_large_smem_f64": ctypes.c_size_t,
+             "hqp_gj_large_smem_f32": ctypes.c_size_t}
 
 #: set by the first build: {"path", "seconds", "log", "built"}
 INFO: dict = {}

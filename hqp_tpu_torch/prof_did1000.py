@@ -213,7 +213,7 @@ def device_trace(kmax, device, program, top=12):
         print(f"[3]   {us / 1e3:9.2f} ms {100 * us / max(busy, 1):5.1f}% "
               f"{n:7d}x {name[:90]}")
     for tag, key in (("K1", "gj_interior_kernel"),
-                     ("K1 large", "gj_large_kernel"),
+                     ("K1 large", "gj_cluster_kernel"),
                      ("K2", "thomas_kernel")):
         us = sum(v[0] for k, v in by_name.items() if key in k)
         n = sum(v[1] for k, v in by_name.items() if key in k)

@@ -74,8 +74,9 @@ def _tridiag_dense(D, U):
 #: (1, 245, 10) is CranePar's interior, which takes the large K1 kernel on
 #: the card (the register kernel's tile does not fit)
 GJ_SHAPES = [(11, 17, 4), (5, 9, 2), (3, 48, 4), (1, 245, 10)]
-#: numpy only: s = 73 in interpret mode would cost minutes of compile time
-GJ_SHAPES_F64 = GJ_SHAPES + [(2, 73, 4)]
+#: numpy only: s = 73 in interpret mode would cost minutes of compile time;
+#: s = 152 and 512 are the large route's ends at b = 10 on an H100
+GJ_SHAPES_F64 = GJ_SHAPES + [(2, 73, 4), (1, 152, 10), (1, 512, 10)]
 
 
 @pytest.mark.parametrize("P,s,b", GJ_SHAPES)
@@ -103,6 +104,34 @@ def test_gj_plain_f64_matches_numpy(P, s, b):
                  (S, np.einsum("psb,psc->pbc", B, Wref))):
         np.testing.assert_allclose(o.numpy(), r,
                                    atol=1e-10 * np.abs(r).max(), rtol=0)
+
+
+#: an H100's opt-in shared memory a block (bytes)
+H100_SMEM_OPTIN = 232448
+
+
+@pytest.mark.parametrize("b,dtype", [(10, torch.float64), (12, torch.float64),
+                                     (10, torch.float32),
+                                     (12, torch.float32)])
+def test_gj_cluster_size_rule(b, dtype):
+    """For every interior the large route takes on an H100 (s = 152 ..
+    512), the cluster size is one the kernel has, its band fits a
+    thread's registers and its block the opt-in shared memory; s = 512
+    in f64 needs 16 blocks."""
+    el = torch.finfo(dtype).bits // 8
+    for s in range(152, 513):
+        C = gj_cuda.cluster_size(s, b, dtype, H100_SMEM_OPTIN)
+        assert C in (4, 8, 16)
+        rows = -(-s // C)
+        assert rows <= 4 * gj_cuda.LARGE_WARPS
+        assert 0 < gj_cuda.large_regs(s, dtype, C) <= gj_cuda.LARGE_REG_BYTES
+        smem = gj_cuda.large_smem(s, b, dtype, C)
+        # at least MIB and the 2 C + 2 pushed and outgoing rows
+        assert (s * b + (2 * C + 2) * s) * el < smem <= H100_SMEM_OPTIN
+    if dtype == torch.float64:
+        assert gj_cuda.cluster_size(512, b, dtype, H100_SMEM_OPTIN) == 16
+    with pytest.raises(ValueError):
+        gj_cuda.cluster_size(512, b, dtype, 16 * 1024)
 
 
 def test_gj_plain_batch_axis_and_nan_pivot():
