@@ -44,7 +44,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      host syncs per IP iteration;
  12. BatchReactor, Bio, TP383omu, HS99omu and CranePar (init/solve), each
      optimal at its reference objective; CranePar's interior (s = 245)
-     must go through the large K1 kernel, 20 launches a solve.
+     must go through the large K1 kernel, 20 launches a solve;
+ 13. the KKT oracles on DID-1000's KKT system (bench.py's build_kkt: the
+     first QP at Q = 1e-2 I, z = w = 1): one f64 factor+solve link each
+     of PartitionedKKT(L=10), RiccatiKKT and FullStageKKT, gated at KKT
+     residual < 1e-6, the oracles' dx within 1e-8 (relative) of the
+     partitioned one, with ms per link;
+ 14. DenseKKT on the first KKT system of PrgLQBlend(n=2000) (the first
+     QP, z = w = 1, Mehrotra's cold-start right-hand side), gated at KKT
+     residual < 1e-10, with ms per factor+solve;
+ 15. the exchangeable modules: TP383, Maratos and HS99 by seven pairings
+     (Powell with BFGS, DScale, Gerschgorin, AugBFGS, Gangster, with the
+     Franke QP solver, and Schittkowski), and DID-60 and DID-1000 by
+     Powell with Franke and by Schittkowski (K1 and K2 launches > 0),
+     each held to the JAX package's CPU f64 verdict, SQP and IP counts
+     and objective (REF_ALT); the two chaotic TP383 failures as
+     REF_CHAOTIC says;
+ 16. the five generated families through solve_generated on the card
+     (LQBlend at n = 2000, the others at n = 1000): optimal with
+     norm_inf < 1e-6 at the JAX package's objective (REF_FAMILIES), but
+     Catena, whose dense saddle matrix is singular, degenerate at its
+     first QP; wall ms per solve.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -99,6 +119,62 @@ CRANEPAR_LARGE = 20
 #: the large K1 kernel's W and Schur against the twin's (relative): sums in
 #: another order; its Minv must equal the twin's to the last bit
 LARGE_WS_TOL = {torch.float64: 1e-14, torch.float32: 1e-6}
+#: the device of phases 13-16 (a CPU run of those phases alone rehearses
+#: them; main() needs the card)
+DEVICE = "cuda"
+#: the exchangeable modules in the JAX reference package on a CPU host in
+#: f64 (verdict, f, SQP and IP iterations): the NLP suite by init(),
+#: solve() with max_iters=120, DID by init(), simulate(), solve() with
+#: max_iters=50, qp_eps=1e-7 (reference_values() in tests/test_torch_sqp.py)
+REF_ALT = {
+    ("TP383", "BFGS"): ("optimal", 728593.6459679933, 50, 536),
+    ("TP383", "AugBFGS"): ("optimal", 728593.6459679933, 50, 536),
+    ("TP383", "Gangster"): ("optimal", 728593.6459591711, 45, 443),
+    ("TP383", "Franke"): ("optimal", 728593.6459821286, 48, 263),
+    ("TP383", "Schittkowski"): ("optimal", 728593.6459679933, 50, 536),
+    ("Maratos", "BFGS"): ("optimal", -0.9999999969273417, 45, 45),
+    ("Maratos", "DScale"): ("optimal", -0.9999928114822518, 43, 43),
+    ("Maratos", "Gerschgorin"): ("optimal", -0.9999928114822518, 43, 43),
+    ("Maratos", "AugBFGS"): ("optimal", -0.9999999969273417, 45, 45),
+    ("Maratos", "Gangster"): ("optimal", -0.9999945594225979, 43, 44),
+    ("Maratos", "Franke"): ("optimal", -0.9999999969273417, 45, 45),
+    ("Maratos", "Schittkowski"): ("optimal", -0.9999999162580193, 10, 11),
+    ("HS99", "BFGS"): ("optimal", -831079891.5102032, 8, 18),
+    ("HS99", "DScale"): ("optimal", -831079891.5101134, 13, 28),
+    ("HS99", "Gerschgorin"): ("optimal", -831079891.5101076, 4, 8),
+    ("HS99", "AugBFGS"): ("optimal", -831079891.5102032, 8, 18),
+    ("HS99", "Gangster"): ("optimal", -831079891.510132, 10, 22),
+    ("HS99", "Franke"): ("optimal", -831079891.5102032, 8, 36),
+    ("HS99", "Schittkowski"): ("optimal", -831079891.5101099, 8, 18),
+    ("DID-60", "Franke"): ("optimal", 98.39997009427306, 1, 50),
+    ("DID-60", "Schittkowski"): ("optimal", 98.40000411194269, 1, 21),
+    ("DID-1000", "Franke"): ("subiters", 37.376436327761525, 1, 50),
+    ("DID-1000", "Schittkowski"): ("optimal", 88.91363105840026, 1, 27),
+}
+#: TP383's two failing pairings, chaotic in the reference itself (ROADMAP
+#: Q3 R11): (verdict, f, SQP, IP) of the reference's full run, printed
+#: beside the port's with the first SQP iteration whose IP count differs,
+#: and what is held: for DScale the IP counts of the first SQP iterations
+#: (the stretch before iteration 34's step throws x to an infeasibility of
+#: 1e12), for Gerschgorin the verdict and the SQP count
+REF_CHAOTIC = {
+    "DScale": (("infeasible", 13841.692724320856, 113, 865),
+               [3, 3, 3, 3, 3, 3, 5, 4, 3, 19, 5, 4, 3, 3, 3, 3, 3, 3, 3,
+                3, 5, 3, 6, 7, 7, 6, 5, 5, 3, 21]),
+    "Gerschgorin": (("infeasible", 5.060834829680604e-12, 49, 369),
+                    ("infeasible", 49)),
+}
+#: the JAX package's solve_generated (host sparse LDL') on a CPU host:
+#: (n, verdict, f, SQP, IP)
+REF_FAMILIES = {
+    "lqblend": (2000, "optimal", -199.99707215036685, 2, 5),
+    "broydn3d": (1000, "optimal", 1.6917715654089756e-14, 7, 7),
+    "bdqrtic": (1000, "optimal", 3983.8179505765397, 9, 10),
+    "srosenbr": (1000, "optimal", 1.4319427271097043e-16, 43, 95),
+}
+#: the same for Catena at n = 1000, which the reference does not solve
+REF_CATENA = ('SqpError("iters") at SQP 200 / IP 200, f = '
+              '-23952.442580435672, norm_inf 1211.0119187742637')
 
 
 def check(cond, msg):
@@ -276,12 +352,29 @@ def thomas_inputs(B, N, n, dtype, seed):
                  for a in (Ds, Us, r))
 
 
+def time_links(be, qp, ones, mask, rhs, reps):
+    """``reps`` synchronized f64 factor+solve links of backend ``be`` at
+    z = w = ``ones`` after one warm-up: (median ms, KKT residual of the
+    last link, its solution)."""
+    from hqp_tpu_torch.qp import kkt as K_
+    ms = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = be.solve(be.factor(qp, ones, ones, mask), qp, ones, ones, mask,
+                       *rhs)
+        torch.cuda.synchronize()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    *_, res = K_.kkt_residual(qp, ones, ones, mask, *rhs, *sol)
+    return statistics.median(ms), float(res), sol
+
+
 def nx6_link(reps=5):
     """bench.py's cfg_nx6_1000 stage QP (built as there, in numpy from
     default_rng(0)) and PartitionedKKT(L=10) factor+solve links on it in
     f64: (median ms per link after one warm-up, KKT residual of the last
     link)."""
-    from hqp_tpu_torch.qp import kkt as K_
     from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
     from hqp_tpu_torch.qp.program import StageQP
     from hqp_tpu_torch.utils import masked as mk
@@ -312,18 +405,7 @@ def nx6_link(reps=5):
     ones = mk.fill(mask, 1.0)
     rhs = (t(np.ones((K + 1, nv))), qp.eq_offsets(), mk.fill(mask, 0.0),
            mk.fill(mask, 0.0))
-    be = PartitionedKKT(L=10)
-    ms = []
-    for i in range(reps + 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sol = be.solve(be.factor(qp, ones, ones, mask), qp, ones, ones, mask,
-                       *rhs)
-        torch.cuda.synchronize()
-        if i:
-            ms.append((time.perf_counter() - t0) * 1e3)
-    *_, res = K_.kkt_residual(qp, ones, ones, mask, *rhs, *sol)
-    return statistics.median(ms), float(res)
+    return time_links(PartitionedKKT(L=10), qp, ones, mask, rhs, reps)[:2]
 
 
 def omu_programs():
@@ -368,6 +450,205 @@ def omu_drive(phase, name, make, simulate):
     check(abs(f - f_ref) <= OMU_RTOL * abs(f_ref),
           f"{name}: objective {f} vs reference {f_ref}")
     return counts
+
+
+def oracle_links(reps=3):
+    """bench.py's DID-1000 KKT system (the port's PrgDID) and one f64
+    factor+solve link of each backend on it, timed as the median of
+    ``reps`` synchronized links after one warm-up: {name: (ms, residual,
+    dx)}."""
+    from hqp_tpu_torch.prof_did1000 import kkt_point
+    from hqp_tpu_torch.qp import kkt as K_
+    from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
+    qp, mask, ones, rhs = kkt_point(1000, DEVICE)
+    out = {}
+    for name, be in (("PartitionedKKT(L=10)", PartitionedKKT(L=10)),
+                     ("RiccatiKKT", K_.RiccatiKKT()),
+                     ("FullStageKKT", K_.FullStageKKT())):
+        ms, res, sol = time_links(be, qp, ones, mask, rhs, reps)
+        out[name] = (ms, res, sol[0])
+    return out
+
+
+def dense_link(reps=5):
+    """The first KKT system of PrgLQBlend(n=2000) (its first QP after the
+    Gerschgorin hela's start, z = w = 1, Mehrotra's cold-start rhs) and
+    DenseKKT factor+solve links on it: (median ms after one warm-up,
+    residual of the last, n, rows of the saddle matrix)."""
+    from hqp_tpu_torch.models.nlp_gen import PrgLQBlend
+    from hqp_tpu_torch.qp import kkt as K_
+    from hqp_tpu_torch.sqp.hessian import Gerschgorin
+    from hqp_tpu_torch.sqp.powell import SqpPowell
+    from hqp_tpu_torch.utils import masked as mk
+    s = SqpPowell(PrgLQBlend(n=2000, device=DEVICE), hela=Gerschgorin())
+    s.init()
+    s.qp_update()
+    qp = s.qp
+    mask = qp.ineq_mask()
+    ones = mk.fill(mask, 1.0)
+    rhs = (qp.c, -qp.eq_offsets(), mk.scale(-1.0, qp.ineq_offsets()),
+           mk.fill(mask, 0.0))
+    ms, res, _ = time_links(K_.DenseKKT(), qp, ones, mask, rhs, reps)
+    return ms, res, qp.n, qp.n + qp.me
+
+
+def alt_solver(pair, prg, **kw):
+    """SQP solver of one pairing of phase 15 on ``prg``."""
+    from hqp_tpu_torch.qp.franke import Franke
+    from hqp_tpu_torch.sqp import hessian
+    from hqp_tpu_torch.sqp.powell import SqpPowell
+    from hqp_tpu_torch.sqp.schittkowski import SqpSchittkowski
+    if pair == "Schittkowski":
+        return SqpSchittkowski(prg, **kw)
+    if pair == "Franke":
+        return SqpPowell(prg, qp_solver=Franke(), **kw)
+    if pair != "BFGS":
+        kw["hela"] = getattr(hessian, pair)()
+    return SqpPowell(prg, **kw)
+
+
+def alt_drive(name, pair, make, simulate=False, ips=None, **kw):
+    """One solve of phase 15 on the card with every counter set to 0 just
+    before it: (verdict, f, SQP, IP, seconds, launches); appends each SQP
+    iteration's IP count to the list ``ips`` if one is given."""
+    from hqp_tpu_torch.ops import thomas_cuda
+    from hqp_tpu_torch.sqp.solver import SqpError
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = alt_solver(pair, make(), **kw)
+    if ips is not None:
+        qp_solve = s.qp_solve
+
+        def counted():
+            qp_solve()
+            ips.append(s.qp_iters_last)
+
+        s.qp_solve = counted
+    s.init()
+    if simulate:
+        s.simulate()
+    try:
+        res = s.solve()
+    except SqpError as e:
+        res = e.reason
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(s.x.device.type == s.qp.Q.device.type == DEVICE,
+          f"{name}/{pair}: not on the card")
+    return (res, float(s.f), s.iter, s.qp_iters_total, secs,
+            {"gj": gj_launches(), "thomas": thomas_cuda.LAUNCHES})
+
+
+def nlp_programs():
+    """Constructors of the NLP suite and DID on the card."""
+    from hqp_tpu_torch.models.did import PrgDID
+    from hqp_tpu_torch.models import nlp_suite as N
+    return {"TP383": lambda: N.PrgTP383(device=DEVICE),
+            "Maratos": lambda: N.PrgMaratos(device=DEVICE),
+            "HS99": lambda: N.PrgHS99(device=DEVICE),
+            "DID-60": lambda: PrgDID(kmax=60, device=DEVICE),
+            "DID-1000": lambda: PrgDID(kmax=1000, device=DEVICE)}
+
+
+def phases_13_to_16(smi):
+    """The phases of the general-NLP slice (see the module docstring)."""
+    # -- 13. the KKT oracles on DID-1000 --------------------------------------
+    links = oracle_links()
+    dx_part = links["PartitionedKKT(L=10)"][2]
+    for name, (ms, res, dx) in links.items():
+        rel = rel_err(dx, dx_part)
+        print(f"[13] DID-1000 {name} f64 link: {ms:.3f} ms per link (median "
+              f"of 3, synchronized), KKT residual {res:.2e}, dx vs the "
+              f"partitioned rel {rel:.2e}; on {smi}")
+        check(res < 1e-6, f"DID-1000 {name} KKT residual {res}")
+        check(rel <= 1e-8, f"DID-1000 {name} dx differs from the partitioned"
+              f" one by {rel}")
+
+    # -- 14. DenseKKT at the general path's size ------------------------------
+    ms, res, n, rows = dense_link()
+    print(f"[14] LQBlend n={n} DenseKKT f64 factor+solve ({rows} saddle rows):"
+          f" {ms:.3f} ms (median of 5, synchronized), KKT residual "
+          f"{res:.2e}; on {smi}")
+    check(res < 1e-10, f"LQBlend DenseKKT residual {res}")
+
+    # -- 15. the exchangeable modules ------------------------------------------
+    make = nlp_programs()
+    for name in ("TP383", "Maratos", "HS99"):
+        for pair in ("BFGS", "DScale", "Gerschgorin", "AugBFGS", "Gangster",
+                     "Franke", "Schittkowski"):
+            ips = []
+            res, f, it, ip, secs, _ = alt_drive(name, pair, make[name],
+                                                ips=ips, max_iters=120)
+            if (name, pair) in REF_ALT:
+                ref = REF_ALT[name, pair]
+                print(f"[15] {name} {pair}: {res}, f = {f!r}, SQP {it} IP "
+                      f"{ip}, {secs:.3f} s (reference {ref[0]}, {ref[1]!r}, "
+                      f"{ref[2]} / {ref[3]})")
+                check((res, it, ip) == (ref[0], ref[2], ref[3]),
+                      f"{name}/{pair}: {res} {it}/{ip} vs reference {ref}")
+                check(abs(f - ref[1]) <= 1e-9 * abs(ref[1]),
+                      f"{name}/{pair}: f = {f} vs reference {ref[1]}")
+                continue
+            full, held = REF_CHAOTIC[pair]
+            print(f"[15] {name} {pair}: {res}, f = {f!r}, SQP {it} IP {ip}, "
+                  f"{secs:.3f} s (reference {full[0]}, {full[1]!r}, {full[2]}"
+                  f" / {full[3]}; chaotic, ROADMAP Q3 R11); IP counts by SQP "
+                  f"iteration {ips}")
+            if isinstance(held, list):
+                n = len(held)
+                check(ips[:n] == held, f"{name}/{pair}: IP counts of the "
+                      f"first {n} SQP iterations {ips[:n]} vs {held}")
+            else:
+                check((res, it) == held,
+                      f"{name}/{pair}: {res} at {it} vs {held}")
+    for name in ("DID-60", "DID-1000"):
+        for pair in ("Franke", "Schittkowski"):
+            res, f, it, ip, secs, c = alt_drive(
+                name, pair, make[name], simulate=True, max_iters=50,
+                qp_eps=QP_EPS_DID1000)
+            ref = REF_ALT[name, pair]
+            print(f"[15] {name} {pair}: {res}, f = {f!r}, SQP {it} IP {ip}, "
+                  f"{secs:.3f} s, launches K1 {c['gj']} K2 {c['thomas']} "
+                  f"(reference {ref[0]}, {ref[1]!r}, {ref[2]} / {ref[3]})")
+            check((res, it, ip) == (ref[0], ref[2], ref[3]),
+                  f"{name}/{pair}: {res} {it}/{ip} vs reference {ref}")
+            if res == "optimal":
+                check(abs(f - ref[1]) <= 1e-9 * abs(ref[1]),
+                      f"{name}/{pair}: f = {f} vs reference {ref[1]}")
+            check(c["gj"]["tile"] > 0 and c["thomas"] > 0,
+                  f"{name}/{pair} skipped a kernel: {c}")
+
+    # -- 16. the generated families ----------------------------------------------
+    from hqp_tpu_torch.models.nlp_gen import solve_generated
+    from hqp_tpu_torch.sqp.solver import SqpError
+    for name in ("lqblend", "broydn3d", "bdqrtic", "catena", "srosenbr"):
+        n = 2000 if name == "lqblend" else 1000
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            info = solve_generated(name, n=n, device=DEVICE)
+        except SqpError as e:
+            info = {"result": e.reason}
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if name == "catena":
+            print(f"[16] catena n={n}: {info['result']}, {ms:.1f} ms wall "
+                  f"(n + 1 link equalities on n heights: the dense saddle "
+                  f"matrix is singular; reference solve_generated "
+                  f"{REF_CATENA}); on {smi}")
+            check(info["result"] == "degenerate", f"catena: {info}")
+            continue
+        rn, rres, rf, rit, rip = REF_FAMILIES[name]
+        f = info.get("obj", float("nan"))
+        print(f"[16] {name} n={n}: {info['result']}, f = {f!r} (reference "
+              f"{rf!r}), norm_inf {info.get('norm_inf')}, SQP/IP port "
+              f"{info.get('sqp_iters')} / {info.get('qp_iters_total')}, "
+              f"reference {rit} / {rip}, {ms:.1f} ms wall; on {smi}")
+        check(info["result"] == "optimal" and info["norm_inf"] < 1e-6,
+              f"{name}: {info}")
+        check(abs(f - rf) <= max(1e-6 * abs(rf), 1e-8),
+              f"{name}: f = {f} vs reference {rf}")
 
 
 def main():
@@ -615,6 +896,8 @@ def main():
                   f"CranePar's interior: {c['gj']['large']} large K1 "
                   f"launches, not {CRANEPAR_LARGE}: {c}")
             launches["gj_large"] = c["gj"]["large"]
+
+    phases_13_to_16(smi)
 
     def row(key, name, replaces):
         t = times[key]

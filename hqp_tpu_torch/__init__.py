@@ -10,10 +10,15 @@ has an obvious counterpart in the JAX reference package:
              to s = 512) and ``thomas_cuda`` (batched block-Thomas master
              solve); ``_build`` compiles ``csrc/*.cu`` with nvcc at first
              CUDA use
-  qp/        ``StageQP`` IR, shared KKT helpers, ``PartitionedKKT``,
-             ``Mehrotra`` interior point
-  sqp/       ``SqpSolver``/``SqpPowell`` and the block BFGS Hessian
-  docp/      stage-wise ``Docp`` programs with ``torch.func`` derivatives
+  qp/        ``StageQP`` and ``DenseQP`` IRs, the KKT backends
+             (``PartitionedKKT``; the oracles ``RiccatiKKT``,
+             ``FullStageKKT``; ``DenseKKT`` for the general path), the
+             ``Mehrotra`` and ``Franke`` interior points
+  sqp/       ``SqpSolver``, ``SqpPowell``, ``SqpSchittkowski`` and the
+             Hessian strategies (``BFGS``, ``DScale``, ``Gerschgorin``,
+             ``AugBFGS``, ``Gangster``)
+  docp/      stage-wise ``Docp`` programs and general ``Nlp`` programs,
+             with ``torch.func`` derivatives
   omu/       the Omuses front end: ``OmuProgram`` (continuous-time
              multistage programs) and the fixed-step integrators
              ``Euler``, ``RK4`` and ``IMP`` (registered under
@@ -22,8 +27,12 @@ has an obvious counterpart in the JAX reference package:
              ``PrgBatchReactor``, ``PrgBio``, ``PrgTP383omu``,
              ``PrgHS99omu``, ``PrgCranePar``), registered under
              ``prg_name`` as DID, Crane, BatchReactor, Bio, TP383omu,
-             HS99omu and CranePar
-  utils/     registry and masked reductions over dataclasses of tensors
+             HS99omu and CranePar; the NLP suite (``nlp_suite``:
+             TP383, Maratos, HS99) and the generated families
+             (``nlp_gen``: LQBlend, Broydn3d, Bdqrtic, Catena, SRosenbr,
+             and ``solve_generated``)
+  utils/     registry, masked reductions over dataclasses of tensors,
+             counted host reads, the least-squares multiplier start
   convert    numpy -> port data (tests feed both packages the same data)
 
 Differences in idiom, not in algorithm: dataclasses of tensors replace
@@ -46,9 +55,10 @@ _torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
 
 from hqp_tpu_torch.utils.registry import modules  # noqa: E402
-from hqp_tpu_torch.qp.program import StageQP  # noqa: E402
+from hqp_tpu_torch.qp.program import DenseQP, StageQP  # noqa: E402
 from hqp_tpu_torch.qp.mehrotra import Mehrotra  # noqa: E402
 from hqp_tpu_torch.sqp.solver import SqpSolver, solve  # noqa: E402
 from hqp_tpu_torch.docp.program import Docp  # noqa: E402
 
-__all__ = ["modules", "StageQP", "Mehrotra", "SqpSolver", "solve", "Docp"]
+__all__ = ["modules", "StageQP", "DenseQP", "Mehrotra", "SqpSolver",
+           "solve", "Docp"]

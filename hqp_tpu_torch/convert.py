@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from hqp_tpu_torch.docp.program import resolve_device
-from hqp_tpu_torch.qp.program import IneqGroups, StageQP
+from hqp_tpu_torch.qp.program import DenseQP, IneqGroups, StageQP
 
 _INEQ_FIELDS = ("bl", "bu", "gl", "gu")
 
@@ -58,3 +58,9 @@ def stage_qp(src, device="cuda") -> StageQP:
         v = getattr(src, fl.name, None)
         kw[fl.name] = None if v is None else tensor(v, device)
     return StageQP(**kw)
+
+
+def dense_qp(src, device="cuda") -> DenseQP:
+    """Any object with DenseQP's attribute names -> DenseQP."""
+    return DenseQP(**{fl.name: tensor(getattr(src, fl.name), device)
+                      for fl in dataclasses.fields(DenseQP)})

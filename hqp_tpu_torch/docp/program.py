@@ -281,6 +281,34 @@ class Docp:
             out = out + torch.einsum("kij,ki->kj", C, yg)
         return cgrad - out
 
+    def eval_hess_blocks(self, v, y, z):
+        """Exact per-stage Lagrangian Hessian blocks [K1, nv, nv] (the
+        Gerschgorin hela's input), by ``vmap`` of ``hessian`` over the
+        stages.  ``y`` is the SQP's equality dict: the dynamics rows take
+        ``y["dyn"]``, and the general stage equalities' ``y["gen"]`` adds
+        to the constraint multipliers like z (the reference maps the
+        whole dict over the stages, which fails: ROADMAP Q3 R10)."""
+        all_v, fin_v = self._split_fns()
+        has_c = self.mc > 0
+        yd = y["dyn"] if isinstance(y, dict) else y
+        zg = z.gl - z.gu
+        if self._has_eqg and isinstance(y, dict) and "gen" in y:
+            zg = zg + torch.where(self._eqg_mask, y["gen"], 0.0)
+
+        def lag(k, vk, yk, zk):
+            out = all_v(k, vk)
+            val = out[1] - yk @ out[0]
+            return val - zk @ out[2] if has_c else val
+
+        H = torch.func.vmap(torch.func.hessian(lag, argnums=1))(
+            self._ks(), v[:-1], yd, zg[:-1])
+
+        def lagK(vk):
+            out = fin_v(vk)
+            return out[0] - zg[-1] @ out[1] if has_c else out[0]
+
+        return torch.cat([H, torch.func.hessian(lagK)(v[-1])[None]])
+
     def repin(self, v):
         """Force pinned (fixed) variables to their values."""
         return torch.where(self._pin_mask, self._pin_vals, v)

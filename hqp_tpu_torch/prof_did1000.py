@@ -1,7 +1,8 @@
-"""Where the time of a DID-1000 (or Crane) solve goes on the card.
+"""Where the time of a DID-1000 (or Crane, or LQBlend) solve goes on the card.
 
     python -m hqp_tpu_torch.prof_did1000 [--kmax 1000] [--device cuda]
     python -m hqp_tpu_torch.prof_did1000 --program Crane [--kmax 50]
+    python -m hqp_tpu_torch.prof_did1000 --program LQBlend [--kmax 2000]
 
 Phases, each printed on lines of its own:
   1. chained KKT factor+solve links at the point of ``bench.py``'s
@@ -18,9 +19,13 @@ Phases, each printed on lines of its own:
   4. the same solve at the default QP tolerance (1e-9), which is expected
      to end in SqpError("subiters"), with the last QP's complementarity.
 ``--program Crane`` runs phases 2 and 3 on ``PrgCrane(K=kmax)`` (default
-QP tolerance; phases 1 and 4 are DID's).  Phase 3 needs a CUDA device and
-is skipped with ``--device cpu``, where the script serves only to check
-itself at a small ``--kmax``.
+QP tolerance; phases 1 and 4 are DID's).  ``--program LQBlend`` runs them
+on ``solve_generated``'s solver for ``PrgLQBlend(n=kmax)`` (the general
+path: Nlp, DenseKKT, the Gerschgorin hela), with the dense layers split
+out: the saddle assembly and LU, the LU solves, the exact Hessian, the
+hela update and eigvalsh.  Phase 3 needs a CUDA device and is skipped
+with ``--device cpu``, where the script serves only to check itself at a
+small ``--kmax``.
 """
 
 from __future__ import annotations
@@ -33,12 +38,15 @@ import time
 
 import torch
 
+from hqp_tpu_torch.docp.nlp import Nlp
 from hqp_tpu_torch.docp.program import Docp
 from hqp_tpu_torch.models.crane import PrgCrane
 from hqp_tpu_torch.models.did import PrgDID
+from hqp_tpu_torch.models.nlp_gen import generated_solver
 from hqp_tpu_torch.qp import kkt as K_
 from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
 from hqp_tpu_torch.qp.mehrotra import Mehrotra
+from hqp_tpu_torch.sqp import hessian
 from hqp_tpu_torch.sqp.powell import SqpPowell
 from hqp_tpu_torch.sqp.solver import SqpError
 from hqp_tpu_torch.utils import masked as mk
@@ -141,9 +149,12 @@ class LayerTimers:
 
 def solve_once(kmax, device, program="DID"):
     """One init/simulate/solve: DID at the recorded reference runs'
-    qp_eps = 1e-7 (ROADMAP Q3 R7), Crane at the defaults."""
+    qp_eps = 1e-7 (ROADMAP Q3 R7), Crane at the defaults, LQBlend as
+    solve_generated runs it (n = kmax)."""
     if program == "Crane":
         s = SqpPowell(PrgCrane(K=kmax, device=device), max_iters=100)
+    elif program == "LQBlend":
+        s = generated_solver("lqblend", n=kmax, device=device)
     else:
         s = SqpPowell(PrgDID(kmax=kmax, device=device), max_iters=50,
                       qp_eps=1e-7)
@@ -156,13 +167,24 @@ def layer_split(kmax, device, program):
     dev = torch.device(device)
     solve_once(kmax, device, program)                # warm-up
     lt = LayerTimers(dev)
-    lt.wrap(Docp, "simulate", "simulate")
-    lt.wrap(Docp, "make_qp", "make_qp")
-    lt.wrap(Docp, "update_fbd_qp", "update_fbd_qp")
+    if program == "LQBlend":
+        lt.wrap(Nlp, "make_qp", "make_qp")
+        lt.wrap(Nlp, "update_fbd_qp", "update_fbd_qp")
+        lt.wrap(Nlp, "eval_hess_blocks", "exact Hessian (torch.func)")
+        lt.wrap(hessian.Gerschgorin, "update", "hela update (excl. Hessian)")
+        lt.wrap(torch.linalg, "eigvalsh", "eigvalsh")
+        lt.wrap(K_.DenseKKT, "factor", "dense H build")
+        lt.wrap(K_, "_saddle_factor", "saddle assembly + LU")
+        lt.wrap(K_.DenseKKT, "solve", "KKT solve (excl. LU solves)")
+        lt.wrap(K_, "_saddle_solve", "LU solves")
+    else:
+        lt.wrap(Docp, "simulate", "simulate")
+        lt.wrap(Docp, "make_qp", "make_qp")
+        lt.wrap(Docp, "update_fbd_qp", "update_fbd_qp")
+        lt.wrap(PartitionedKKT, "factor", "KKT factor")
+        lt.wrap(PartitionedKKT, "solve", "KKT solve")
     lt.wrap(Mehrotra, "cold_start", "IP cold start (excl. KKT)")
     lt.wrap(Mehrotra, "step", "IP step (excl. KKT)")
-    lt.wrap(PartitionedKKT, "factor", "KKT factor")
-    lt.wrap(PartitionedKKT, "solve", "KKT solve")
     sync(dev)
     t0 = time.perf_counter()
     try:
@@ -240,13 +262,16 @@ def default_eps(kmax, device):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--program", choices=("DID", "Crane"), default="DID")
+    ap.add_argument("--program", choices=("DID", "Crane", "LQBlend"),
+                    default="DID")
     ap.add_argument("--kmax", type=int, default=None,
-                    help="stages (default 1000 for DID, 50 for Crane)")
+                    help="stages (default 1000 for DID, 50 for Crane), or "
+                    "LQBlend's n (default 2000)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     did = args.program == "DID"
-    kmax = args.kmax or (1000 if did else 50)
+    kmax = args.kmax or {"DID": 1000, "Crane": 50,
+                         "LQBlend": 2000}[args.program]
     if args.device == "cuda":
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

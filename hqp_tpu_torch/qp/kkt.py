@@ -1,7 +1,10 @@
-"""Shared KKT reduction helpers of the interior-point solver.
+"""Shared KKT reduction helpers and the oracle backends.
 
-Port of the backend-generic part of ``hqp_tpu/qp/kkt.py`` (the Riccati,
-dense and full-stage backends are not ported yet).  Every backend solves
+Port of ``hqp_tpu/qp/kkt.py``: the backend-generic helpers, the
+sequential Riccati oracle (:class:`RiccatiKKT`, ``qp_mat_solver
+Riccati``), the dense LU backend of the general path (:class:`DenseKKT`,
+``qp_mat_solver DenseKKT``) and the dense lowering of a StageQP
+(:class:`FullStageKKT`, ``qp_mat_solver FullKKT``).  Every backend solves
 the per-iteration KKT system (hqp/Hqp_IpMatrix.h:42-89)
 
     | -Q  A'  C'  0 | |dx|   |r1|
@@ -15,14 +18,27 @@ by eliminating (dz, dw) into the saddle system (hqp/Hqp_IpRedSpBKP.C)
     [ A  0 ] [dy] = [r2]                     with  H = Q + C' W^-1 Z C,
 
 then recovering dz = W^-1 Z (r3 - C dx) + W^-1 r4 and dw = C dx - r3.
+
+The reference's ``lax.scan`` recursions run as Python loops over the
+stages, and its ``.at[].set`` scatters as ``index_put_``.  The dense LU
+runs in float64 on the QP's device (``torch.linalg.lu_factor_ex``); the
+reference's f32 LU exists for the TPU alone and is not ported.
+``qp_mat_solver RedSpBKP`` is not registered: in the reference package it
+resolves to the host sparse backend (``kkt_sparse_host.py``), which the
+port does not have yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
-from hqp_tpu_torch.qp.program import IneqGroups, StageQP
+from hqp_tpu_torch.ops import smalllin as sl
+from hqp_tpu_torch.qp.program import DenseQP, IneqGroups, StageQP
 from hqp_tpu_torch.utils import masked as mk
+from hqp_tpu_torch.utils.registry import modules
 from hqp_tpu_torch.utils.sync import host
 
 #: diagonal penalty pinning fixed (min == max) variables; exactness is
@@ -200,6 +216,15 @@ def stage_recover(qp, z, w, mask, g, dx, dyd, r2, r3, r4):
     return dx, dy, dz, dw
 
 
+def stage_base_solve(solve_reduced_fn, qp, z, w, mask, r1, r2, r3, r4):
+    """Base solve of the stage-structured backends: penalty-adjusted
+    reduced rhs, reduced solve, multiplier recovery from exact
+    stationarity (exactness comes from the caller's refinement)."""
+    g, g2 = stage_reduce_rhs(qp, z, w, mask, r1, r2, r3, r4)
+    dx, dyd = solve_reduced_fn(g2, r2["dyn"])
+    return stage_recover(qp, z, w, mask, g, dx, dyd, r2, r3, r4)
+
+
 def recover_zw(qp, z, w, mask, dx, r3, r4):
     """dz = sigma_eff (r3 - C dx) + w_inv_eff r4,  dw = C dx - r3."""
     Cdx = qp.matvec_ineq(dx)
@@ -230,3 +255,288 @@ def _stage_hessians(qp: StageQP, z: IneqGroups, w: IneqGroups,
     vm = qp.x_mask().to(H.dtype)
     H = H * vm[:, :, None] * vm[:, None, :]
     return H + torch.diag_embed(1.0 - vm)
+
+
+# ---------------------------------------------------------------------------
+# Riccati backend (the sequential parity oracle)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RiccatiFactors:
+    Luu: torch.Tensor     # [K, nu, nu] Cholesky factors of Guu_k
+    Gux: torch.Tensor     # [K, nu, nx]
+    Kgain: torch.Tensor   # [K, nu, nx] Guu^-1 Gux
+    P: torch.Tensor       # [K1, nx, nx] cost-to-go Hessians (P_0..P_K)
+    LP0: torch.Tensor     # [nx, nx] Cholesky factor of P_0
+    LuuK: torch.Tensor    # [nu, nu] Cholesky of the terminal u-block
+    KgainK: torch.Tensor  # [nu, nx] HuuK^-1 HuxK
+
+
+class RiccatiKKT:
+    """Backward Riccati factorization of the reduced stage-structured KKT
+    (hqp/Hqp_IpLQDOCP.C:796-862, :1328-1788): Cholesky of the projected
+    control Hessian Guu per stage, one stage after the other.
+
+    It cannot represent structurally absent states at stages k >= 1
+    (their dynamics rows would constrain the preceding stage);
+    :meth:`validate` refuses such programs.  This is the parity oracle of
+    the reference's Riccati recursion, registered as ``qp_mat_solver
+    Riccati``; the flagship name ``LQDOCP`` is the partitioned backend.
+    """
+
+    def __init__(self, reg: float = 0.0, refine_eps: float = 1e-10,
+                 refine_rounds: int = 5):
+        self.reg = reg
+        self.refine_eps = refine_eps
+        self.refine_rounds = refine_rounds
+
+    def validate(self, qp):
+        """Raise for structurally absent states at stages k >= 1 (one host
+        read); pin such states by lb == ub instead."""
+        if isinstance(qp, StageQP) and \
+                not host(qp.var_mask[1:, : qp.nx].all()):
+            raise ValueError(
+                "RiccatiKKT (LQDOCP): structurally absent states at stage "
+                "k >= 1 cannot be represented by the sequential Riccati "
+                "recursion; pin them via lb == ub (exact equality rows) or "
+                "use the partitioned backend (qp_mat_solver SpSC)")
+
+    def factor(self, qp: StageQP, z, w, mask):
+        nx, nu = qp.nx, qp.nu
+        H = _stage_hessians(qp, z, w, mask) + stage_eq_penalty(qp)
+        eyeu = self.reg * torch.eye(nu, dtype=H.dtype, device=H.device)
+        # terminal stage: eliminate the (padded) u-block by Schur complement
+        HK = H[-1]
+        LuuK = sl.chol(HK[nx:, nx:] + eyeu)
+        KgainK = sl.cho_solve(LuuK, HK[nx:, :nx])
+        P = HK[:nx, :nx] - HK[:nx, nx:] @ KgainK
+        P = 0.5 * (P + P.T)
+        Am = qp.A_masked()
+        Luu, Gux, Kg, Pn = [], [], [], []
+        for k in reversed(range(qp.K)):
+            Ak = Am[k]
+            G = H[k] + Ak.T @ (P @ Ak)
+            Gux_k = G[nx:, :nx]
+            L = sl.chol(G[nx:, nx:] + eyeu)
+            K_k = sl.cho_solve(L, Gux_k)
+            Pn.append(P)
+            P = G[:nx, :nx] - Gux_k.T @ K_k
+            P = 0.5 * (P + P.T)
+            Luu.append(L)
+            Gux.append(Gux_k)
+            Kg.append(K_k)
+
+        def stages(lst):
+            return torch.stack(lst[::-1])
+
+        return RiccatiFactors(
+            Luu=stages(Luu), Gux=stages(Gux), Kgain=stages(Kg),
+            P=torch.cat([P[None], stages(Pn)]), LP0=sl.chol(P),
+            LuuK=LuuK, KgainK=KgainK)
+
+    def solve_reduced(self, fac: RiccatiFactors, qp: StageQP, g, r2):
+        """Solve  H dx - A' dy = -g,  A_k v_k - dx_{k+1} = r2_k."""
+        nx, K = qp.nx, qp.K
+        gx, gu = g[:, :nx], g[:, nx:]
+        Am = qp.A_masked()
+        Ax, Au = Am[:, :, :nx], Am[:, :, nx:]
+        xcm = qp.xcoupling_mask().to(g.dtype)
+
+        # backward sweep: linear cost-to-go p_k and feedforward bu_k
+        p = gx[-1] - fac.KgainK.T @ gu[-1]
+        bu, pnext = [None] * K, [None] * K
+        for k in reversed(range(K)):
+            t = p - fac.P[k + 1] @ r2[k]
+            bu[k] = sl.cho_solve(fac.Luu[k], -(gu[k] + Au[k].T @ t))
+            pnext[k] = p
+            p = gx[k] + Ax[k].T @ t + fac.Gux[k].T @ bu[k]
+
+        # forward sweep: controls, states, dynamics multipliers (the
+        # recursion's costate is the negative of the saddle system's dy)
+        dxk = sl.cho_solve(fac.LP0, -p)
+        v, dy = [], []
+        for k in range(K):
+            vk = torch.cat([dxk, bu[k] - fac.Kgain[k] @ dxk])
+            dxk = (Am[k] @ vk - r2[k]) * xcm[k]
+            v.append(vk)
+            dy.append(-(fac.P[k + 1] @ dxk + pnext[k]))
+        duK = -(sl.cho_solve(fac.LuuK, gu[-1]) + fac.KgainK @ dxk)
+        v.append(torch.cat([dxk, duK]))
+        return torch.stack(v), torch.stack(dy)
+
+    def solve(self, fac, qp: StageQP, z, w, mask, r1, r2, r3, r4):
+        def base(a1, a2, a3, a4):
+            return stage_base_solve(
+                lambda g, r2d: self.solve_reduced(fac, qp, g, r2d),
+                qp, z, w, mask, a1, a2, a3, a4)
+
+        sol = base(r1, r2, r3, r4)
+        if self.refine_rounds > 0:
+            sol = refine(base, qp, z, w, mask, r1, r2, r3, r4, sol,
+                         eps=self.refine_eps, max_rounds=self.refine_rounds)
+        return sol
+
+
+modules.register("qp_mat_solver", "Riccati")(RiccatiKKT)
+
+
+# ---------------------------------------------------------------------------
+# dense backends
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DenseFactors:
+    lu: torch.Tensor
+    piv: torch.Tensor
+
+
+def _saddle_factor(H, A, eq_mask):
+    """LU-factor [[-H, A'], [A, 0]] with masked eq rows replaced by
+    identity rows."""
+    Am = A * eq_mask[:, None]
+    Z = torch.diag((~eq_mask).to(H.dtype))
+    J = torch.cat([torch.cat([-H, Am.T], dim=1),
+                   torch.cat([Am, Z], dim=1)], dim=0)
+    # no singularity check: a zero pivot propagates inf/NaN into the
+    # directions, which the interior point reports as degenerate (as the
+    # reference's LU does); the check would also cost a host sync
+    lu, piv, _ = torch.linalg.lu_factor_ex(J)
+    return DenseFactors(lu=lu, piv=piv)
+
+
+def _saddle_solve(fac: DenseFactors, n, r1_eff, r2):
+    rhs = torch.cat([r1_eff, r2])
+    sol = torch.linalg.lu_solve(fac.lu, fac.piv, rhs[:, None])[:, 0]
+    return sol[:n], sol[n:]
+
+
+class DenseKKT:
+    """Dense reduced-system backend for :class:`DenseQP` (the role of the
+    reference's default Hqp_IpRedSpBKP, hqp/Hqp_IpRedSpBKP.C: eliminate
+    (z, w), factor J = [-(Q + C'W^-1Z C), A'; A, 0]) by one dense LU."""
+
+    def __init__(self, refine_eps: float = 1e-10, refine_rounds: int = 5):
+        self.refine_eps = refine_eps
+        self.refine_rounds = refine_rounds
+
+    def factor(self, qp: DenseQP, z, w, mask):
+        sig = barrier_ratios(z, w, mask)
+        H = qp.Q + (qp.C.T * sig.g) @ qp.C
+        return _saddle_factor(H, qp.A, qp.eq_mask_)
+
+    def solve(self, fac, qp: DenseQP, z, w, mask, r1, r2, r3, r4):
+        def base(a1, a2, a3, a4):
+            g = reduce_r1(qp, z, w, mask, a1, a3, a4)
+            r2m = torch.where(qp.eq_mask_, a2, 0.0)
+            dx, dy = _saddle_solve(fac, qp.n, g, r2m)
+            dz, dw = recover_zw(qp, z, w, mask, dx, a3, a4)
+            return dx, dy, dz, dw
+
+        sol = base(r1, r2, r3, r4)
+        if self.refine_rounds > 0:
+            sol = refine(base, qp, z, w, mask, r1, r2, r3, r4, sol,
+                         eps=self.refine_eps, max_rounds=self.refine_rounds)
+        return sol
+
+
+modules.register("qp_mat_solver", "DenseKKT")(DenseKKT)
+
+
+class FullStageKKT:
+    """Verification backend: lowers a StageQP to one dense saddle system
+    (the role of the reference's full-matrix variants,
+    hqp/Hqp_IpFullSpLU)."""
+
+    @staticmethod
+    def dense_blocks(qp: StageQP, Hb):
+        """Lowering of the stage blocks to one dense (H, A)."""
+        K1, nv = Hb.shape[0], Hb.shape[1]
+        K, nx = qp.K, qp.nx
+        n = K1 * nv
+        f = dict(dtype=Hb.dtype, device=Hb.device)
+
+        def idx(a, shape):
+            return torch.tensor(np.broadcast_to(a, shape).reshape(-1),
+                                device=Hb.device)
+
+        # block-diagonal H by one scatter
+        base = np.arange(K1)[:, None, None] * nv
+        shape3 = (K1, nv, nv)
+        H = torch.zeros((n, n), **f).index_put_(
+            (idx(base + np.arange(nv)[None, :, None], shape3),
+             idx(base + np.arange(nv)[None, None, :], shape3)),
+            Hb.reshape(-1))
+        # dynamics rows [A_k | -I] by two scatters
+        rb = np.arange(K)[:, None, None] * nx
+        shapeA = (K, nx, nv)
+        A = torch.zeros((K * nx, n), **f).index_put_(
+            (idx(rb + np.arange(nx)[None, :, None], shapeA),
+             idx(np.arange(K)[:, None, None] * nv
+                 + np.arange(nv)[None, None, :], shapeA)),
+            qp.A_masked().reshape(-1))
+        ir = (rb + np.arange(nx)[None, :, None])[:, :, 0]
+        ic = np.arange(1, K + 1)[:, None] * nv + np.arange(nx)[None, :]
+        A = A.index_put_(
+            (idx(ir, ir.shape), idx(ic, ic.shape)),
+            -qp.xcoupling_mask().to(A.dtype).reshape(-1), accumulate=True)
+        return H, A
+
+    @staticmethod
+    def _gen_eq_rows(qp: StageQP):
+        """Block-diagonal lowering of the per-stage general equality rows
+        E [K1, meq, nv] into dense rows [K1*meq, n] and their mask."""
+        K1, meq, nv = qp.E.shape
+        shape = (K1, meq, nv)
+        rr = np.broadcast_to(np.arange(K1)[:, None, None] * meq
+                             + np.arange(meq)[None, :, None], shape)
+        cc = np.broadcast_to(np.arange(K1)[:, None, None] * nv
+                             + np.arange(nv)[None, None, :], shape)
+        Em = qp.E * qp.eqg_mask[:, :, None]
+        G = torch.zeros((K1 * meq, K1 * nv), dtype=Em.dtype,
+                        device=Em.device).index_put_(
+            (torch.as_tensor(rr.reshape(-1), device=Em.device),
+             torch.as_tensor(cc.reshape(-1), device=Em.device)),
+            Em.reshape(-1))
+        # rows with an identically zero Jacobian would make the hard
+        # saddle system singular; the penalty backends drop them (E'E = 0),
+        # so the oracle deactivates them too (their dy stays 0)
+        live = Em.abs().sum(dim=2) > 0.0
+        return G, (qp.eqg_mask & live).reshape(-1)
+
+    def factor(self, qp: StageQP, z, w, mask):
+        H, A = self.dense_blocks(qp, _stage_hessians(qp, z, w, mask))
+        n = H.shape[0]
+        # fixed-variable equality rows: identity rows masked by fixed_mask
+        rows = [A, torch.eye(n, dtype=H.dtype, device=H.device)]
+        masks = [torch.ones(A.shape[0], dtype=torch.bool, device=H.device),
+                 qp.fixed_mask().reshape(-1)]
+        if qp.has_gen_eq():
+            G, gmask = self._gen_eq_rows(qp)
+            rows.append(G)
+            masks.append(gmask)
+        return _saddle_factor(H, torch.cat(rows), torch.cat(masks))
+
+    def solve(self, fac, qp: StageQP, z, w, mask, r1, r2, r3, r4):
+        g = reduce_r1(qp, z, w, mask, r1, r3, r4)
+        K1, nv = qp.K + 1, qp.nv
+        n = K1 * nv
+        fm = qp.fixed_mask().reshape(-1)
+        parts = [r2["dyn"].reshape(-1),
+                 torch.where(fm, r2["fix"].reshape(-1), 0.0)]
+        if qp.has_gen_eq():
+            _, gmask = self._gen_eq_rows(qp)
+            parts.append(torch.where(gmask, r2["gen"].reshape(-1), 0.0))
+        dxf, dyf = _saddle_solve(fac, n, g.reshape(-1), torch.cat(parts))
+        dx = dxf.reshape(K1, nv)
+        ndyn = qp.K * qp.nx
+        dy = {"dyn": dyf[:ndyn].reshape(qp.K, qp.nx),
+              "fix": torch.where(fm, dyf[ndyn:ndyn + n], 0.0).reshape(K1,
+                                                                      nv)}
+        if qp.has_gen_eq():
+            dy["gen"] = torch.where(gmask, dyf[ndyn + n:],
+                                    0.0).reshape(K1, qp.meq)
+        dz, dw = recover_zw(qp, z, w, mask, dx, r3, r4)
+        return dx, dy, dz, dw
+
+
+modules.register("qp_mat_solver", "FullKKT")(FullStageKKT)

@@ -1,10 +1,14 @@
 """Hessian approximations for the SQP Lagrangian ("hela").
 
-Port of ``hqp_tpu/sqp/hessian.py`` (the base ``HL`` and the block BFGS;
-the other strategies wait).  Reference: hqp/Hqp_HL.{h,C},
-Hqp_HL_BFGS.C.  The Hessian is a batch of dense diagonal blocks
-``[B, nb, nb]`` (for a DOCP B = K+1 stages, nb = nx+nu), and every block
-update runs batched over B.
+Port of ``hqp_tpu/sqp/hessian.py`` (reference: hqp/Hqp_HL.{h,C},
+Hqp_HL_BFGS.C, Hqp_HL_DScale.C, Hqp_HL_Gerschgorin.C, Hqp_HL_AugBFGS.C,
+Hqp_HL_Gangster.C): the base ``HL`` with its scale modes and least-squares
+multiplier start, the damped block BFGS, the diagonal ``DScale``, the
+exact-Hessian ``Gerschgorin``, ``AugBFGS`` and ``Gangster``.  The Hessian
+is a batch of dense diagonal blocks ``[B, nb, nb]`` (for a DOCP B = K+1
+stages, nb = nx+nu; for an NLP one block), and every block update runs
+batched over B.  ``SparseBFGS`` waits for the host-sparse slice (it needs
+the native RCM ordering).
 """
 
 from __future__ import annotations
@@ -29,9 +33,13 @@ def gerschgorin_posdef(Qb: torch.Tensor, eps: float) -> torch.Tensor:
 class HL:
     """Base Hessian strategy (Hqp_HL).  Subclasses implement update()."""
 
-    def __init__(self, scale: int = 1, eps: float = 1e-8):
+    def __init__(self, scale: int = 1, eps: float = 1e-8,
+                 init_multipliers: bool = False):
         self.scale = scale
         self.eps = eps
+        #: start the SQP from least-squares equality multipliers
+        #: (Hqp_HL::est_y) instead of zero
+        self.init_multipliers = init_multipliers
 
     def init(self, prg, x, y, z, Qb):
         """Initial block Hessian (Hqp_HL::init, Hqp_HL.C:84-171).
@@ -61,6 +69,9 @@ class HL:
 
     def update(self, Qb, s_b, u_b, alpha):
         raise NotImplementedError
+
+    def posdef(self, Qb):
+        return gerschgorin_posdef(Qb, self.eps)
 
 
 @modules.register("sqp_hela", "BFGS")
@@ -112,3 +123,82 @@ class BFGS(HL):
             Qn = torch.where((mn < 0.0)[:, None, None],
                              Qn - mn[:, None, None] * _eye_like(Qb), Qn)
         return 0.5 * (Qn + Qn.transpose(-1, -2))
+
+
+@modules.register("sqp_hela", "DScale")
+class DScale(HL):
+    """Diagonal-only scaling update (Hqp_HL_DScale.C): a diagonal Hessian
+    whose entries track u_i/s_i with safeguards."""
+
+    def update(self, Qb, s_b, u_b, alpha):
+        d = torch.diagonal(Qb, dim1=-2, dim2=-1)
+        ok = (s_b.abs() > 1e-16) & (u_b * s_b > 0.0)
+        newd = torch.where(ok, u_b / torch.where(ok, s_b, 1.0), d)
+        return torch.diag_embed(torch.clamp(newd, self.eps, 1.0 / self.eps))
+
+
+@modules.register("sqp_hela", "Gerschgorin")
+class Gerschgorin(HL):
+    """Exact Lagrangian Hessian with per-iteration Gerschgorin
+    regularization (Hqp_HL_Gerschgorin.C).  The SQP binds the current
+    iterate before each update; a program with ``eval_hess_blocks``
+    supplies the exact blocks, any other gets its blocks repaired."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self._prg = None
+        self._xyz = None
+
+    def bind(self, prg, x, y, z):
+        self._prg = prg
+        self._xyz = (x, y, z)
+
+    def update(self, Qb, s_b, u_b, alpha):
+        if self._prg is None or not hasattr(self._prg, "eval_hess_blocks"):
+            return gerschgorin_posdef(Qb, self.eps)
+        return gerschgorin_posdef(self._prg.eval_hess_blocks(*self._xyz),
+                                  self.eps)
+
+
+@modules.register("sqp_hela", "AugBFGS")
+class AugBFGS(BFGS):
+    """BFGS with per-block inertia correction (Hqp_HL_AugBFGS.C role):
+    after the damped update each block is shifted so that its smallest
+    eigenvalue is at least ``inertia_eps`` times its largest."""
+
+    def __init__(self, inertia_eps: float = 1e-6, **kw):
+        kw.setdefault("eigen_control", False)
+        super().__init__(**kw)
+        self.inertia_eps = inertia_eps
+
+    def update(self, Qb, s_b, u_b, alpha):
+        Qn = super().update(Qb, s_b, u_b, alpha)
+        evs = torch.linalg.eigvalsh(0.5 * (Qn + Qn.transpose(-1, -2)))
+        lo = evs[..., 0]
+        hi = torch.clamp(evs[..., -1], min=self.eps)
+        shift = torch.clamp(self.inertia_eps * hi - lo, min=0.0)
+        return Qn + shift[..., None, None] * _eye_like(Qn)
+
+
+@modules.register("sqp_hela", "Gangster")
+class Gangster(BFGS):
+    """BFGS update projected onto the sparsity pattern of the initial
+    Hessian blocks (the 'gangster operator', Hqp_HL_Gangster.C): entries
+    outside it are zeroed after every update, then the blocks repaired."""
+
+    def __init__(self, **kw):
+        kw.setdefault("eigen_control", False)
+        super().__init__(**kw)
+        self._pattern = None
+
+    def init(self, prg, x, y, z, Qb):
+        Q0 = super().init(prg, x, y, z, Qb)
+        self._pattern = (Q0.abs() > 0.0) | _eye_like(Q0).to(torch.bool)
+        return Q0
+
+    def update(self, Qb, s_b, u_b, alpha):
+        Qn = super().update(Qb, s_b, u_b, alpha)
+        if self._pattern is not None:
+            Qn = gerschgorin_posdef(torch.where(self._pattern, Qn, 0.0),
+                                    self.eps)
+        return Qn

@@ -5,8 +5,10 @@ Tcl solve loop hqp/hqp_solve.tcl:83-265): qp_update (Lagrangian
 gradient, quasi-Newton update), qp_solve (hot/cold started IP
 subproblem), step (globalization + the ``feasible_vals`` rescue), the
 Hessian restart, and the convergence, error and stall tests that define
-when a problem counts as solved.  The scalars each phase needs on the host
-come back in one stacked read.
+when a problem counts as solved.  A StageQP program factors through the
+partitioned backend, any other (a DenseQP from an Nlp) through the dense
+LU backend.  The scalars each phase needs on the host come back in one
+stacked read.
 """
 
 from __future__ import annotations
@@ -16,9 +18,11 @@ import math
 
 import torch
 
+from hqp_tpu_torch.qp import kkt
 from hqp_tpu_torch.qp import mehrotra as ip
 from hqp_tpu_torch.qp.program import StageQP
 from hqp_tpu_torch.utils import masked as mk
+from hqp_tpu_torch.utils.diagnostics import est_y
 from hqp_tpu_torch.utils.registry import modules
 from hqp_tpu_torch.utils.sync import host
 
@@ -143,10 +147,11 @@ class SqpSolver:
         f, qp = self.prg.make_qp(self.x)
         self.f, self.qp = f, qp
         if self._kkt_backend is None:
-            if not isinstance(qp, StageQP):
-                raise NotImplementedError("only StageQP programs are ported")
-            from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
-            self._kkt_backend = PartitionedKKT()
+            if isinstance(qp, StageQP):
+                from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
+                self._kkt_backend = PartitionedKKT()
+            else:
+                self._kkt_backend = kkt.DenseKKT()
         self.qp_solver = self.qp_solver.with_backend(self._kkt_backend)
         lu = getattr(self._kkt_backend, "_lu", None)
         if self._default_qp and lu is not None and lu() == torch.float32:
@@ -154,7 +159,12 @@ class SqpSolver:
             # path's refined KKT floor (~1e-7); per instance, not backend
             self.qp_solver.eps = max(self.qp_solver.eps, 1e-7)
         self.ip_state = self.qp_solver.init_state(qp)
-        self.y = mk.fill(qp.eq_offsets(), 0.0)
+        if getattr(self.hela, "init_multipliers", False):
+            # least-squares multipliers before the first Hessian scale
+            # estimate (Hqp_HL::est_y)
+            self.y = est_y(qp)
+        else:
+            self.y = mk.fill(qp.eq_offsets(), 0.0)
         self.z = mk.fill(qp.ineq_mask(), 0.0)
         self.iter = 0
         self.inf_iters = 0
@@ -166,7 +176,10 @@ class SqpSolver:
         pass
 
     def simulate(self):
-        """prg_simulate: initial-value rollout before solving."""
+        """prg_simulate: initial-value rollout before solving (a program
+        without dynamics, an Nlp, has none)."""
+        if not hasattr(self.prg, "simulate"):
+            return
         self.x = self.prg.simulate(self.x)
         f, qp = self.prg.make_qp(
             self.x, Q=self.qp.Q if self.qp is not None else None)
@@ -196,6 +209,9 @@ class SqpSolver:
             self.f, self.qp = f, qp
             grd_L = _grd_L_of_qp(qp, self.y, self.z)
             dL = torch.where(qp.x_mask(), grd_L - dL_old, 0.0)
+            if hasattr(self.hela, "bind"):
+                # exact-Hessian strategies evaluate at the iterate
+                self.hela.bind(prg, self.x, self.y, self.z)
             Qb = self.hela.update(prg.q_to_blocks(qp.Q),
                                   prg.split_blocks(self.d),
                                   prg.split_blocks(dL), self.alpha)

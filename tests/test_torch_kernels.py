@@ -12,6 +12,8 @@ them hardest (Crane at 50 stages, Bio through IMP) are solved end to end
 by both packages.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -351,3 +353,381 @@ def test_kernel_wrappers_refuse_bad_input():
     with pytest.raises(ValueError):
         gj_cuda.interior_factor(torch.zeros(2, 4, 4, device="meta"),
                                 torch.zeros(2, 4, 2, device="meta"))
+
+
+# -- the general-NLP path and the KKT oracles (layer level) -----------------------
+
+from hqp_tpu.docp.nlp import Nlp as JNlp  # noqa: E402
+from hqp_tpu.models import nlp_gen as JG  # noqa: E402
+from hqp_tpu.models import nlp_suite as JN  # noqa: E402
+from hqp_tpu.models.did import PrgDID as JPrgDID  # noqa: E402
+from hqp_tpu.qp import kkt as jkkt  # noqa: E402
+from hqp_tpu.qp.program import DenseIneq as JDenseIneq  # noqa: E402
+from hqp_tpu.qp.program import DenseQP as JDenseQP  # noqa: E402
+from hqp_tpu.qp.program import IneqGroups as JIneqGroups  # noqa: E402
+from hqp_tpu.qp import mehrotra as jip  # noqa: E402
+from hqp_tpu.sqp.solver import SqpError as JSqpError  # noqa: E402
+from hqp_tpu.sqp import hessian as jhess  # noqa: E402
+from hqp_tpu.utils.diagnostics import est_y as jest_y  # noqa: E402
+from tests.test_kkt import random_rhs, random_stage_qp, random_zw  # noqa
+
+from hqp_tpu_torch import convert  # noqa: E402
+from hqp_tpu_torch.models import nlp_gen as TG  # noqa: E402
+from hqp_tpu_torch.models import nlp_suite as TN  # noqa: E402
+from hqp_tpu_torch.models.did import PrgDID  # noqa: E402
+from hqp_tpu_torch.qp import kkt as tkkt  # noqa: E402
+from hqp_tpu_torch.qp.program import DenseIneq  # noqa: E402
+from hqp_tpu_torch.sqp import hessian as thess  # noqa: E402
+from hqp_tpu_torch.sqp.solver import SqpError  # noqa: E402
+from hqp_tpu_torch.utils.diagnostics import est_y  # noqa: E402
+from hqp_tpu_torch.utils.registry import modules  # noqa: E402
+
+CPU = "cpu"
+_G = ("bl", "bu", "gl", "gu")
+
+
+def _np(a):
+    return a.detach().numpy() if isinstance(a, torch.Tensor) else \
+        np.asarray(a)
+
+
+def _rel(out, ref, tol):
+    """max |out - ref| <= tol * max(|ref|, 1) over the whole array."""
+    o, r = _np(out), _np(ref)
+    assert o.shape == r.shape, (o.shape, r.shape)
+    if r.size:
+        np.testing.assert_allclose(o, r, rtol=0,
+                                   atol=tol * max(np.abs(r).max(), 1.0))
+
+
+def _tree_rel(out, ref, tol):
+    """_rel leaf by leaf over dicts and dataclasses of arrays."""
+    if isinstance(ref, dict):
+        assert sorted(out) == sorted(ref)
+        for k in ref:
+            _tree_rel(out[k], ref[k], tol)
+    elif hasattr(ref, "__dataclass_fields__"):
+        for k in ref.__dataclass_fields__:
+            _tree_rel(getattr(out, k), getattr(ref, k), tol)
+    else:
+        _rel(out, ref, tol)
+
+
+def _random_dense_qp(n, me, mi, seed):
+    """A seeded DenseQP (SPD Q, one padded row in each nonempty group) in
+    both packages."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((n, n))
+    arrs = dict(Q=M @ M.T + n * np.eye(n), c=rng.standard_normal(n),
+                A=rng.standard_normal((me, n)), b=rng.standard_normal(me),
+                C=rng.standard_normal((mi, n)), d=1.0 + rng.random(mi),
+                eq_mask_=np.arange(me) != me - 1,
+                ineq_mask_=np.arange(mi) != 1)
+    return (JDenseQP(**{k: jnp.asarray(a) for k, a in arrs.items()}),
+            convert.dense_qp(type("Q", (), arrs), CPU))
+
+
+def _dense_zw_rhs(n, me, mi, seed):
+    rng = np.random.default_rng(seed)
+    z, w = 0.5 + rng.random(mi), 0.5 + rng.random(mi)
+    r = (rng.standard_normal(n), rng.standard_normal(me),
+         rng.standard_normal(mi), rng.standard_normal(mi))
+    jz, jw, jm = (JDenseIneq(g=jnp.asarray(a)) for a in
+                  (z, w, np.arange(mi) != 1))
+    tz, tw, tm = (DenseIneq(g=convert.tensor(a, CPU)) for a in
+                  (z, w, np.arange(mi) != 1))
+    jr = (jnp.asarray(r[0]), jnp.asarray(r[1]), JDenseIneq(
+        g=jnp.asarray(r[2])), JDenseIneq(g=jnp.asarray(r[3])))
+    tr = (convert.tensor(r[0], CPU), convert.tensor(r[1], CPU),
+          DenseIneq(g=convert.tensor(r[2], CPU)),
+          DenseIneq(g=convert.tensor(r[3], CPU)))
+    return (jz, jw, jm, *jr), (tz, tw, tm, *tr)
+
+
+@pytest.mark.parametrize("n,me,mi", [(6, 2, 5), (9, 0, 4), (5, 3, 0)])
+def test_dense_qp_matches_reference(n, me, mi):
+    """Every DenseQP method at 1e-14 relative (padded rows included)."""
+    jqp, tqp = _random_dense_qp(n, me, mi, seed=n + me + mi)
+    rng = np.random.default_rng(1)
+    x, y, z = (rng.standard_normal(k) for k in (n, me, mi))
+    jx, jy, jz = (jnp.asarray(a) for a in (x, y, z))
+    tx, ty, tz = (convert.tensor(a, CPU) for a in (x, y, z))
+    for name, ja, ta in (
+            ("matvec_Q", (jx,), (tx,)), ("eval_eq", (jx,), (tx,)),
+            ("matvec_eqT", (jy,), (ty,)), ("matvec_ineq", (jx,), (tx,)),
+            ("matvec_ineqT", (JDenseIneq(g=jz),), (DenseIneq(g=tz),)),
+            ("eval_ineq", (jx,), (tx,)), ("ineq_offsets", (), ()),
+            ("eq_offsets", (), ()), ("norm_data", (), ()),
+            ("zero_x", (), ()), ("x_mask", (), ()), ("eq_mask", (), ()),
+            ("ineq_mask", (), ())):
+        _tree_rel(getattr(tqp, name)(*ta), getattr(jqp, name)(*ja), 1e-14)
+    b = JDenseQP.build(jqp.Q, jqp.c, A=jqp.A, C=jqp.C)
+    tb = type(tqp).build(tqp.Q, tqp.c, A=tqp.A, C=tqp.C)
+    for k in ("A", "b", "C", "d", "eq_mask_", "ineq_mask_"):
+        _rel(getattr(tb, k), getattr(b, k), 0.0)
+
+
+def _did60_kkt():
+    """DID-60's first QP at Q = 1e-2 I (bench.py's build_kkt) with seeded
+    barrier data and right-hand side, in both packages."""
+    prg = JPrgDID(kmax=60)
+    _, qp = prg.make_qp(prg.setup(), Q=jnp.tile(jnp.eye(3) * 1e-2,
+                                                 (61, 1, 1)))
+    return qp
+
+
+def _stage_kkt_pair(case):
+    qp = _did60_kkt() if case == "DID-60" else random_stage_qp(*case)
+    z, w, mask = random_zw(qp, seed=1)
+    r = random_rhs(qp, seed=2)
+    port = (convert.stage_qp(qp, CPU), convert.ineq(z, CPU),
+            convert.ineq(w, CPU), convert.ineq(mask, CPU),
+            convert.tensor(r[0], CPU), convert.eq(r[1], CPU),
+            convert.ineq(r[2], CPU), convert.ineq(r[3], CPU))
+    return (qp, z, w, mask, *r), port
+
+
+@pytest.mark.parametrize("backend", ["Riccati", "FullKKT"])
+@pytest.mark.parametrize("case", [(7, 3, 2, 2), (1, 2, 1, 1), (12, 4, 1, 0),
+                                  "DID-60"])
+def test_stage_oracles_match_reference(backend, case):
+    """RiccatiKKT and FullStageKKT factor + solve against the reference
+    backends on the same system: every direction at 1e-10 relative, and
+    the port's KKT residual at the refinement tolerance."""
+    jargs, targs = _stage_kkt_pair(case)
+    jb = {"Riccati": jkkt.RiccatiKKT, "FullKKT": jkkt.FullStageKKT}[backend]()
+    tb = modules.create("qp_mat_solver", backend)
+
+    def jsolve(qp, z, w, mask, *r):
+        return jb.solve(jb.factor(qp, z, w, mask), qp, z, w, mask, *r)
+
+    ref = jax.jit(jsolve)(*jargs)
+    tqp, tz, tw, tm, *tr = targs
+    out = tb.solve(tb.factor(tqp, tz, tw, tm), tqp, tz, tw, tm, *tr)
+    for o, r in zip(out, ref):
+        _tree_rel(o, r, 1e-10)
+    *_, res = tkkt.kkt_residual(tqp, tz, tw, tm, *tr, *out)
+    scale = float(tkkt.rhs_scale(tqp, tm, *tr))
+    assert float(res) <= 1e-8 * max(scale, 1.0), float(res)
+
+
+def test_riccati_validate_refuses_absent_states():
+    """The sequential recursion cannot represent a structurally absent
+    state at k >= 1; validate() says so, and passes DID's layout."""
+    qp = convert.stage_qp(random_stage_qp(4, 2, 1, 1), CPU)
+    tkkt.RiccatiKKT().validate(qp)
+    qp.var_mask[2, 0] = False
+    with pytest.raises(ValueError):
+        tkkt.RiccatiKKT().validate(qp)
+
+
+@pytest.mark.parametrize("case", [(24, 14, 22), (5, 1, 8), (9, 0, 6),
+                                  "HS99"])
+def test_dense_kkt_matches_reference(case):
+    """DenseKKT factor + solve against the reference backend at 1e-10
+    relative: random dense QPs at the (n, me, mi) of the stage shapes
+    above lowered, and HS99's first QP (Q repaired as HL.init does)."""
+    if case == "HS99":
+        jp, tp = JN.PrgHS99(), TN.PrgHS99(device=CPU)
+        _, jqp = jp.make_qp(jp.setup(), Q=10.0 * jnp.eye(7))
+        tqp = convert.dense_qp(jqp, CPU)
+        n, me, mi = jqp.n, jqp.me, jqp.mi
+    else:
+        n, me, mi = case
+        jqp, tqp = _random_dense_qp(n, me, mi, seed=n)
+    jr, tr = _dense_zw_rhs(n, me, mi, seed=3)
+    jb, tb = jkkt.DenseKKT(), tkkt.DenseKKT()
+
+    def jsolve(qp, z, w, mask, *r):
+        return jb.solve(jb.factor(qp, z, w, mask), qp, z, w, mask, *r)
+
+    ref = jax.jit(jsolve)(jqp, *jr)
+    out = tb.solve(tb.factor(tqp, *tr[:3]), tqp, *tr)
+    for o, r in zip(out, ref):
+        _tree_rel(o, r, 1e-10)
+    *_, res = tkkt.kkt_residual(tqp, *tr, *out)
+    assert float(res) <= 1e-9 * max(float(tkkt.rhs_scale(tqp, tr[2],
+                                                          *tr[3:])), 1.0)
+
+
+@pytest.mark.parametrize("kind", ["stage", "dense"])
+def test_est_y_matches_reference(kind):
+    """Least-squares multipliers (40 CG steps) at 1e-12 relative, on a
+    StageQP with dynamics and fixed-variable rows and on a DenseQP with
+    well-conditioned rows.  (On a QP whose J J' has a condition number
+    of 50 the two packages part at 1e-9 after 30 steps: CG amplifies the
+    last bits of its inner products, summed in another order in each.)"""
+    if kind == "stage":
+        jqp = random_stage_qp(7, 3, 2, 2)
+        lb, ub = np.array(jqp.lb), np.array(jqp.ub)
+        lb[3, 1] = ub[3, 1] = 0.5
+        lb[5, 0] = ub[5, 0] = -0.2
+        jqp = dataclasses.replace(jqp, lb=jnp.asarray(lb),
+                                  ub=jnp.asarray(ub))
+        tqp = convert.stage_qp(jqp, CPU)
+    else:
+        jqp, tqp = _random_dense_qp(60, 20, 10, seed=4)
+    _tree_rel(est_y(tqp), jest_y(jqp), 1e-12)
+
+
+def _hela_pair(name):
+    return (getattr(jhess, name)(), getattr(thess, name)())
+
+
+@pytest.mark.parametrize("name", ["DScale", "Gerschgorin", "AugBFGS",
+                                  "Gangster"])
+def test_hela_matches_reference(name):
+    """init (scale 1, program Q zero and nonzero) and two updates on
+    seeded blocks at 1e-12; Gerschgorin updates from the exact Hessian
+    of Catena (n = 7: nonlinear equality rows) once bound, and repairs
+    the blocks before."""
+    jp, tp = JG.PrgCatena(n=7), TG.PrgCatena(n=7, device=CPU)
+    x = np.asarray(jp.setup()) + 0.05
+    tp.setup()
+    rng = np.random.default_rng(11)
+    y, zg = rng.standard_normal(8), rng.random(0)
+    jx, jy, jz = jnp.asarray(x), jnp.asarray(y), JDenseIneq(
+        g=jnp.asarray(zg))
+    tx, ty, tz = (convert.tensor(x, CPU), convert.tensor(y, CPU),
+                  DenseIneq(g=convert.tensor(zg, CPU)))
+    jh, th = _hela_pair(name)
+    X = rng.standard_normal((1, 7, 7))
+    Q = 0.5 * (X + X.transpose(0, 2, 1))
+    for Q0 in (np.zeros((1, 7, 7)), Q):
+        ref = jh.init(jp, jx, jy, jz, jnp.asarray(Q0))
+        out = th.init(tp, tx, ty, tz, convert.tensor(Q0, CPU))
+        _rel(out, ref, 1e-12)
+    s = rng.standard_normal((1, 7))
+    u = rng.standard_normal((1, 7))
+    u[0, :3] = s[0, :3] * 2.0                    # some curvature pairs ok
+    for alpha in (1.0, 0.5):
+        ref = jh.update(ref, jnp.asarray(s), jnp.asarray(u), alpha)
+        out = th.update(out, convert.tensor(s, CPU), convert.tensor(u, CPU),
+                        alpha)
+        _rel(out, ref, 1e-12)
+        if name == "Gerschgorin":
+            jh.bind(jp, jx, jy, jz)
+            th.bind(tp, tx, ty, tz)
+
+
+@pytest.mark.parametrize("scale", [0, 2, 3])
+def test_hela_scale_modes_match_reference(scale):
+    """HL.init's other scale modes and the least-squares multiplier
+    flag, on the BFGS hela of both packages (Maratos, Q zero)."""
+    jh = jhess.BFGS(scale=scale, init_multipliers=True)
+    th = thess.BFGS(scale=scale, init_multipliers=True)
+    assert th.init_multipliers
+    jp, tp = JN.PrgMaratos(), TN.PrgMaratos(device=CPU)
+    jx, tx = jp.setup(), tp.setup()
+    jy, ty = jnp.asarray([0.3]), convert.tensor([0.3], CPU)
+    jz, tz = JDenseIneq(g=jnp.zeros(0)), DenseIneq(g=tx.new_zeros(0))
+    _rel(th.init(tp, tx, ty, tz, tx.new_zeros((1, 2, 2))),
+         jh.init(jp, jx, jy, jz, jnp.zeros((1, 2, 2))), 1e-12)
+
+
+@pytest.mark.parametrize("name", ["DID", "Crane"])
+def test_docp_hess_blocks_matches_reference(name):
+    """Docp.eval_hess_blocks (vmap of hessian over the stages) at 1e-10
+    against the reference function called with y["dyn"] as y, the one
+    call under which its code is right (ROADMAP Q3 R10).  For the crane
+    (mc = 0) the reference also needs z's general groups at their true
+    width 0: its padded masked-off row fails its zk @ c."""
+    if name == "DID":
+        jp, tp = JPrgDID(kmax=8), PrgDID(kmax=8, device=CPU)
+    else:
+        jp, tp = JPrgCrane(K=4), PrgCrane(K=4, device=CPU)
+    v0 = np.asarray(jp.setup())
+    tp.setup()
+    rng = np.random.default_rng(5)
+    v = v0 + 0.1 * rng.standard_normal(v0.shape)
+    _, qp = jp.make_qp(jnp.asarray(v))
+    mask = qp.ineq_mask()
+    z = {g: rng.random(getattr(mask, g).shape) for g in _G}
+    y = {"dyn": rng.standard_normal(qp.b.shape),
+         "fix": rng.standard_normal(qp.c.shape)}
+    zj = dict(z)
+    if jp.mc == 0:
+        zj["gl"] = zj["gu"] = np.zeros((v.shape[0], 0))
+    ref = jp.eval_hess_blocks(jnp.asarray(v), jnp.asarray(y["dyn"]),
+                              JIneqGroups(**{g: jnp.asarray(a)
+                                             for g, a in zj.items()}))
+    out = tp.eval_hess_blocks(convert.tensor(v, CPU), convert.eq(y, CPU),
+                              convert.ineq(z, CPU))
+    _rel(out, ref, 1e-10)
+
+
+NLP_PROGRAMS = {
+    "TP383": (JN.PrgTP383, TN.PrgTP383, {}),
+    "Maratos": (JN.PrgMaratos, TN.PrgMaratos, {}),
+    "HS99": (JN.PrgHS99, TN.PrgHS99, {}),
+    "LQBlend": (JG.PrgLQBlend, TG.PrgLQBlend, {"n": 60}),
+    "Broydn3d": (JG.PrgBroydn3d, TG.PrgBroydn3d, {"n": 40}),
+    "Bdqrtic": (JG.PrgBdqrtic, TG.PrgBdqrtic, {"n": 40}),
+    "Catena": (JG.PrgCatena, TG.PrgCatena, {"n": 40}),
+    "SRosenbr": (JG.PrgSRosenbr, TG.PrgSRosenbr, {"n": 40}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NLP_PROGRAMS))
+def test_nlp_program_matches_reference(name):
+    """setup, make_qp, update_fbd_qp, eval_grd_L and eval_hess_blocks of
+    each NLP program (the suite and every family at n <= 60) at a
+    perturbed point, at 1e-12 relative."""
+    jcls, tcls, kw = NLP_PROGRAMS[name]
+    jp, tp = jcls(**kw), tcls(device=CPU, **kw)
+    assert isinstance(jp, JNlp)
+    x0 = np.asarray(jp.setup())
+    _rel(tp.setup(), x0, 0.0)
+    rng = np.random.default_rng(len(name))
+    x = x0 * (1.0 + 0.05 * rng.random(x0.shape)) + 0.01
+    jx, tx = jnp.asarray(x), convert.tensor(x, CPU)
+    fj, qpj = jp.make_qp(jx)
+    ft, qpt = tp.make_qp(tx)
+    _rel(ft, fj, 1e-12)
+    _tree_rel(qpt, qpj, 1e-12)
+    x2 = x * 1.01
+    fj, qpj = jp.update_fbd_qp(qpj, jx, jnp.asarray(x2))
+    ft, qpt = tp.update_fbd_qp(qpt, tx, convert.tensor(x2, CPU))
+    _rel(ft, fj, 1e-12)
+    _tree_rel(qpt, qpj, 1e-12)
+    y, zg = rng.standard_normal(qpj.me), rng.random(qpj.mi)
+    jy, jz = jnp.asarray(y), JDenseIneq(g=jnp.asarray(zg))
+    ty, tz = convert.tensor(y, CPU), DenseIneq(g=convert.tensor(zg, CPU))
+    _rel(tp.eval_grd_L(tx, ty, tz), jp.eval_grd_L(jx, jy, jz), 1e-12)
+    _rel(tp.eval_hess_blocks(tx, ty, tz), jp.eval_hess_blocks(jx, jy, jz),
+         1e-12)
+
+
+@pytest.mark.parametrize("name,n", [("lqblend", 100), ("broydn3d", 60),
+                                    ("bdqrtic", 60), ("catena", 40),
+                                    ("srosenbr", 60)])
+def test_families_match_reference(name, n):
+    """Each generated family at small n through solve_generated's
+    configuration (Powell, FAMILY_HELA, Mehrotra(1e-9, 60)) with DenseKKT
+    in both packages: the same verdict, SQP and IP iterations, f within
+    1e-9 relative.  Catena has n + 1 link equalities on n heights, so its
+    dense saddle matrix is singular: both packages end "degenerate" at
+    the first QP (ROADMAP Q3 R12)."""
+    from hqp_tpu.utils.registry import modules as jmodules
+    import hqp_tpu.sqp.hessian  # noqa: F401
+    js = JSqpPowell(JG.FAMILIES[name](n=n), max_iters=200, eps=1e-6,
+                    qp_solver=jip.Mehrotra(eps=1e-9, max_iters=60),
+                    kkt_backend=jkkt.DenseKKT(),
+                    hela=jmodules.create("sqp_hela", JG.FAMILY_HELA[name]))
+    js.init()
+    try:
+        jres = js.solve()
+    except JSqpError as e:
+        jres = e.reason
+    try:
+        info = TG.solve_generated(name, n=n, device=CPU)
+        tres = info["result"]
+    except SqpError as e:
+        info, tres = None, e.reason
+    assert tres == jres == ("degenerate" if name == "catena" else "optimal")
+    if info is not None:
+        assert (info["sqp_iters"], info["qp_iters_total"]) == \
+            (js.iter, js.qp_iters_total)
+        np.testing.assert_allclose(info["obj"], float(js.f), rtol=1e-9,
+                                   atol=1e-15)
+        assert info["norm_inf"] < 1e-6

@@ -376,14 +376,35 @@ OMU_PROGRAMS = ("Crane", "BatchReactor", "Bio", "TP383omu", "HS99omu",
                 "CranePar")
 
 
-@pytest.mark.parametrize("case", ["explicit", "default", "omu"])
+#: the NLP programs of the general-NLP slice, by registry name
+NLP_NAMES = ("TP383", "Maratos", "HS99", "LQBlend", "Broydn3d", "Bdqrtic",
+             "Catena", "SRosenbr")
+
+
+@pytest.mark.parametrize("case", ["explicit", "default", "omu", "nlp"])
 def test_cuda_device_refused_without_card(monkeypatch, case):
     """Asking for the card where there is none raises; nothing carries on
     on the CPU.  With no ``device`` the entry points ask for the card, and
     they build on the CPU only when the caller names it.  The registry
-    holds every program and integrator of the Omuses slice, and each
-    program refuses the card it does not have."""
+    holds every program and integrator of the Omuses slice and every NLP
+    program, and each program refuses the card it does not have, as do
+    ``solve_generated`` and ``convert.dense_qp``."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if case == "nlp":
+        assert set(NLP_NAMES) <= set(modules.names("prg_name"))
+        for name in NLP_NAMES:
+            with pytest.raises(RuntimeError):
+                modules.create("prg_name", name)
+            prg = modules.create("prg_name", name, device=CPU)
+            assert prg.device.type == "cpu"
+            assert prg.setup().device.type == "cpu"
+        with pytest.raises(RuntimeError):
+            TG.solve_generated("lqblend", n=20)
+        jqp = JDenseQP.build(jnp.eye(2), jnp.zeros(2))
+        with pytest.raises(RuntimeError):
+            convert.dense_qp(jqp)
+        assert convert.dense_qp(jqp, CPU).Q.device.type == "cpu"
+        return
     if case == "explicit":
         with pytest.raises(RuntimeError):
             PrgDID(kmax=10, device="cuda")
@@ -420,6 +441,267 @@ def test_port_imports_no_jax():
          "import sys, hqp_tpu_torch, hqp_tpu_torch.sqp.powell, "
          "hqp_tpu_torch.models.did, hqp_tpu_torch.models.crane, "
          "hqp_tpu_torch.models.omu_suite, hqp_tpu_torch.omu.program, "
-         "hqp_tpu_torch.convert; "
+         "hqp_tpu_torch.convert, hqp_tpu_torch.models.nlp_suite, "
+         "hqp_tpu_torch.models.nlp_gen, hqp_tpu_torch.qp.franke, "
+         "hqp_tpu_torch.sqp.schittkowski, hqp_tpu_torch.prof_did1000; "
          "assert 'jax' not in sys.modules, 'jax imported'"],
         check=True, env=env, cwd=root, timeout=120)
+
+
+# -- the general-NLP path and the exchangeable modules (solves) --------------------
+
+from hqp_tpu.models import nlp_gen as JG  # noqa: E402
+from hqp_tpu.models import nlp_suite as JN  # noqa: E402
+from hqp_tpu.qp import kkt as jkkt  # noqa: E402
+from hqp_tpu.qp.franke import Franke as JFranke  # noqa: E402
+from hqp_tpu.qp.program import DenseQP as JDenseQP  # noqa: E402
+from hqp_tpu.sqp import hessian as jhess  # noqa: E402
+from hqp_tpu.sqp.schittkowski import SqpSchittkowski as JSqpSchitt  # noqa
+from hqp_tpu.sqp.solver import SqpError as JSqpError  # noqa: E402
+
+from hqp_tpu_torch.models import nlp_gen as TG  # noqa: E402
+from hqp_tpu_torch.models import nlp_suite as TN  # noqa: E402
+from hqp_tpu_torch.qp.franke import Franke  # noqa: E402
+from hqp_tpu_torch.qp.kkt import DenseKKT  # noqa: E402
+from hqp_tpu_torch.qp.program import DenseQP  # noqa: E402
+from hqp_tpu_torch.sqp import hessian as thess  # noqa: E402
+from hqp_tpu_torch.sqp.schittkowski import SqpSchittkowski  # noqa: E402
+from hqp_tpu_torch.sqp.solver import SqpError  # noqa: E402
+
+
+def _franke_qp(case):
+    """tests/test_franke.py's three QPs, as (Q, c, A, b, C, d) arrays."""
+    if case == "box":
+        return (np.eye(2), np.array([-3.0, -1.0]), None, None,
+                np.concatenate([np.eye(2), -np.eye(2)]),
+                np.array([0.0, 0.0, 2.0, 2.0]))
+    if case == "eq_ineq":
+        return (np.eye(2), np.zeros(2), np.array([[1.0, 1.0]]),
+                np.array([-1.0]), np.eye(2), np.zeros(2))
+    rng = np.random.default_rng(0)
+    n, mi = 6, 8
+    M = rng.standard_normal((n, n))
+    return (M @ M.T + n * np.eye(n), rng.standard_normal(n), None, None,
+            rng.standard_normal((mi, n)), 1.0 + rng.random(mi))
+
+
+@pytest.mark.parametrize("case", ["box", "eq_ineq", "random"])
+def test_franke_matches_reference(case):
+    """Franke over DenseKKT on tests/test_franke.py's QPs: the same
+    result and iteration count, x and y at 1e-9 (the IP tolerance)."""
+    arrs = _franke_qp(case)
+    jqp = JDenseQP.build(*(None if a is None else jnp.asarray(a)
+                           for a in arrs))
+    tqp = DenseQP.build(*(None if a is None else _c(a) for a in arrs))
+    jf = JFranke(backend=jkkt.DenseKKT())
+    ref = jf.solve(jqp, jf.init_state(jqp))
+    tf = Franke(backend=DenseKKT())
+    out = tf.solve(tqp, tf.init_state(tqp))
+    assert int(out.result) == int(ref.result) == 0
+    assert int(out.iter) == int(ref.iter)
+    _close(out.x, ref.x, 1e-9)
+    _close(out.y, ref.y, 1e-9)
+
+
+#: the pairings of the exchangeable modules: (SQP class, hela, QP solver)
+PAIRINGS = {"BFGS": ("Powell", None, None),
+            "DScale": ("Powell", "DScale", None),
+            "Gerschgorin": ("Powell", "Gerschgorin", None),
+            "AugBFGS": ("Powell", "AugBFGS", None),
+            "Gangster": ("Powell", "Gangster", None),
+            "Franke": ("Powell", None, "Franke"),
+            "Schittkowski": ("Schittkowski", None, None)}
+
+
+def _pairing(pair, port):
+    """(SQP class, keyword arguments) of one pairing in either package."""
+    sqp, hela, qp_solver = PAIRINGS[pair]
+    if port:
+        cls = SqpPowell if sqp == "Powell" else SqpSchittkowski
+        kw = {"hela": getattr(thess, hela)()} if hela else {}
+        if qp_solver:
+            kw["qp_solver"] = Franke()
+    else:
+        cls = JSqpPowell if sqp == "Powell" else JSqpSchitt
+        kw = {"hela": getattr(jhess, hela)()} if hela else {}
+        if qp_solver:
+            kw["qp_solver"] = JFranke()
+    return cls, kw
+
+
+def _run(cls, prg, simulate=False, **kw):
+    """init (simulate) solve; the verdict is "optimal" or the SqpError
+    reason."""
+    s = cls(prg, **kw)
+    s.init()
+    if simulate:
+        s.simulate()
+    try:
+        res = s.solve()
+    except (SqpError, JSqpError) as e:
+        res = e.reason
+    return s, res
+
+
+def _same_solve(js, jres, ts, tres):
+    """The same verdict, SQP and IP iterations; f within 1e-9 relative
+    (1e-15 absolute for an optimum at 0)."""
+    assert tres == jres
+    assert (ts.iter, ts.qp_iters_total) == (js.iter, js.qp_iters_total)
+    _close(float(ts.f), float(js.f), 1e-15, rtol=1e-9)
+
+
+@pytest.mark.parametrize("pair", ["Franke", "Schittkowski"])
+def test_did60_alt_solvers_match_reference(pair):
+    """DID-60 (qp_eps = 1e-7, init/simulate/solve) through Powell with
+    Franke and through Schittkowski, on PartitionedKKT in the port: the
+    same verdict, SQP and IP iterations; f within 1e-9 relative."""
+    jcls, jkw = _pairing(pair, port=False)
+    tcls, tkw = _pairing(pair, port=True)
+    js, jres = _run(jcls, JPrgDID(kmax=60), True, max_iters=50, qp_eps=1e-7,
+                    **jkw)
+    ts, tres = _run(tcls, PrgDID(kmax=60, device=CPU), True, max_iters=50,
+                    qp_eps=1e-7, **tkw)
+    assert jres == "optimal"
+    _same_solve(js, jres, ts, tres)
+
+
+NLP_SUITE = {"TP383": (JN.PrgTP383, TN.PrgTP383),
+             "Maratos": (JN.PrgMaratos, TN.PrgMaratos),
+             "HS99": (JN.PrgHS99, TN.PrgHS99)}
+
+
+@pytest.mark.parametrize("name,pair", [
+    (name, pair) for name in NLP_SUITE for pair in PAIRINGS
+    if (name, pair) not in (("TP383", "DScale"), ("TP383", "Gerschgorin"))])
+def test_nlp_suite_matches_reference(name, pair):
+    """The exchangeable modules on the NLP suite (max_iters = 120,
+    init/solve; DenseKKT), phase 15's matrix less TP383's two chaotic
+    failures (the next test): the same verdict, SQP and IP iterations, f
+    within 1e-9 relative."""
+    jcls, jkw = _pairing(pair, port=False)
+    tcls, tkw = _pairing(pair, port=True)
+    jp, tp = NLP_SUITE[name]
+    js, jres = _run(jcls, jp(), max_iters=120, **jkw)
+    ts, tres = _run(tcls, tp(device=CPU), max_iters=120, **tkw)
+    _same_solve(js, jres, ts, tres)
+
+
+@pytest.mark.parametrize("pair,iters", [("DScale", 46),
+                                        ("Gerschgorin", 120)])
+def test_tp383_failures_match_reference(pair, iters):
+    """TP383's two failing pairings, whose ends are chaotic in the
+    reference itself (ROADMAP Q3 R11: two to four ulps on one starting
+    component turn its DScale run's SqpError("infeasible") at 113 into
+    another iteration or into "optimal", and move its Gerschgorin run's
+    IP count between 369 and 489).  DScale: the same IP count in each of
+    the first 46 SQP iterations and SqpError("iters") there in both
+    packages.  Gerschgorin: SqpError("infeasible") at SQP iteration 49
+    in both, and f within 1e-9 relative."""
+    jcls, jkw = _pairing(pair, port=False)
+    tcls, tkw = _pairing(pair, port=True)
+    js, jres = _run(jcls, JN.PrgTP383(), max_iters=iters, **jkw)
+    ts, tres = _run(tcls, TN.PrgTP383(device=CPU), max_iters=iters, **tkw)
+    if pair == "DScale":
+        assert jres == tres == "iters"
+        assert (ts.iter, ts.qp_iters_total) == (js.iter, js.qp_iters_total)
+    else:
+        assert jres == tres == "infeasible"
+        assert ts.iter == js.iter == 49
+        _close(float(ts.f), float(js.f), 0.0, rtol=1e-9)
+
+
+@pytest.mark.parametrize("start,credit", [(1, 3), (0, 2)])
+def test_powell_watchdog_matches_reference(start, credit):
+    """Powell's watchdog on Maratos (tests/test_globalization.py:24-52):
+    relaxed steps and back-outs counted alike, the same verdict, SQP and
+    IP iterations, f within 1e-9 relative."""
+    kw = dict(max_iters=60, watchdog_start=start, watchdog_credit=credit)
+    js, jres = _run(JSqpPowell, JN.PrgMaratos(), **kw)
+    ts, tres = _run(SqpPowell, TN.PrgMaratos(device=CPU), **kw)
+    _same_solve(js, jres, ts, tres)
+    assert (ts.wd_relaxed_steps, ts.wd_backouts) == \
+        (js.wd_relaxed_steps, js.wd_backouts)
+    assert ts.wd_relaxed_steps >= 2 if credit == 3 else ts.wd_backouts >= 1
+
+
+def test_registry_holds_the_exchangeable_modules():
+    """The names of this slice resolve to the port's classes;
+    ``qp_mat_solver RedSpBKP`` and ``sqp_hela SparseBFGS`` stay
+    unregistered until the host-sparse slice (ROADMAP Q1, R4); a DenseQP
+    program gets DenseKKT from SqpSolver.init."""
+    import hqp_tpu_torch.sqp.schittkowski  # noqa: F401
+    from hqp_tpu_torch.qp import kkt as tkkt
+    want = {"sqp_solver": {"Powell", "Schittkowski"},
+            "sqp_qp_solver": {"Mehrotra", "Franke"},
+            "sqp_hela": {"BFGS", "DScale", "Gerschgorin", "AugBFGS",
+                         "Gangster"},
+            "qp_mat_solver": {"SpSC", "LQDOCP", "DenseKKT", "Riccati",
+                              "FullKKT"}}
+    for slot, names in want.items():
+        assert set(modules.names(slot)) == names, slot
+    assert not modules.has("qp_mat_solver", "RedSpBKP")
+    assert not modules.has("sqp_hela", "SparseBFGS")
+    assert modules.create("qp_mat_solver", "FullKKT").__class__ is \
+        tkkt.FullStageKKT
+    assert modules.create("sqp_qp_solver", "Franke").__class__ is Franke
+    s = modules.create("sqp_solver", "Schittkowski",
+                       TN.PrgMaratos(device=CPU))
+    s.init()
+    assert isinstance(s.qp, DenseQP) and isinstance(s._kkt_backend, DenseKKT)
+
+
+def reference_values():
+    """The JAX package's results that chip_smoke.py holds the card to
+    (REF_ALT, REF_CHAOTIC, REF_FAMILIES, REF_CATENA, REF_F_DID1000), one
+    JSON row each: [program, pairing or n, verdict, f, SQP, IP, then the
+    IP count by SQP iteration, qp_eps or norm_inf].  Run from the repository root on a CPU host:
+    ``JAX_PLATFORMS=cpu python -c "import jax;
+    jax.config.update('jax_platforms', 'cpu'); import tests.test_torch_sqp
+    as t; t.reference_values()"``."""
+    import json
+
+    from hqp_tpu.models.nlp_gen import solve_generated
+    from hqp_tpu.sqp import powell
+
+    def row(s, res, extra):
+        return [res, float(s.f), s.iter, s.qp_iters_total, extra]
+
+    for name, (jp, _) in NLP_SUITE.items():
+        for pair in PAIRINGS:
+            cls, kw = _pairing(pair, port=False)
+            s = cls(jp(), max_iters=120, **kw)
+            ips = []
+            qp_solve = s.qp_solve
+            s.qp_solve = lambda: (qp_solve(), ips.append(s.qp_iters_last))
+            s.init()
+            try:
+                res = s.solve()
+            except JSqpError as e:
+                res = e.reason
+            print(json.dumps([name, pair, *row(s, res, ips)]), flush=True)
+    for kmax, pair, eps in ((60, "Franke", 1e-7), (60, "Schittkowski", 1e-7),
+                            (1000, "BFGS", 1e-7), (1000, "BFGS", 1e-9),
+                            (1000, "Franke", 1e-7),
+                            (1000, "Schittkowski", 1e-7)):
+        cls, kw = _pairing(pair, port=False)
+        s, res = _run(cls, JPrgDID(kmax=kmax), True, max_iters=50,
+                      qp_eps=eps, **kw)
+        print(json.dumps([f"DID-{kmax}", pair, *row(s, res, eps)]),
+              flush=True)
+    made = []
+    init = powell.SqpPowell.init
+
+    def keep(self):           # the solver, to read it after an SqpError
+        made.append(self)
+        init(self)
+
+    powell.SqpPowell.init = keep
+    for name in sorted(JG.FAMILIES):
+        n = 2000 if name == "lqblend" else 1000
+        try:
+            res = solve_generated(name, n=n)["result"]
+        except JSqpError as e:
+            res = e.reason
+        print(json.dumps([name, n, *row(made[-1], res,
+                                        made[-1].norm_inf)]), flush=True)
