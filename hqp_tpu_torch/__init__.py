@@ -10,10 +10,13 @@ has an obvious counterpart in the JAX reference package:
              to s = 512) and ``thomas_cuda`` (batched block-Thomas master
              solve); ``_build`` compiles ``csrc/*.cu`` with nvcc at first
              CUDA use
-  qp/        ``StageQP`` and ``DenseQP`` IRs, the KKT backends
-             (``PartitionedKKT``; the oracles ``RiccatiKKT``,
+  qp/        ``StageQP`` and ``DenseQP`` IRs (a StageQP may carry leading
+             batch axes), the KKT backends (``PartitionedKKT``, which
+             also takes a batch; the oracles ``RiccatiKKT``,
              ``FullStageKKT``; ``DenseKKT`` for the general path), the
-             ``Mehrotra`` and ``Franke`` interior points
+             ``Mehrotra`` and ``Franke`` interior points, and
+             ``presolve`` (``merge_parallel_rows``,
+             ``original_row_violation``)
   sqp/       ``SqpSolver``, ``SqpPowell``, ``SqpSchittkowski`` and the
              Hessian strategies (``BFGS``, ``DScale``, ``Gerschgorin``,
              ``AugBFGS``, ``Gangster``)
@@ -31,8 +34,13 @@ has an obvious counterpart in the JAX reference package:
              TP383, Maratos, HS99) and the generated families
              (``nlp_gen``: LQBlend, Broydn3d, Bdqrtic, Catena, SRosenbr,
              and ``solve_generated``)
-  utils/     registry, masked reductions over dataclasses of tensors,
-             counted host reads, the least-squares multiplier start
+  parallel/  ``scenarios``: whole QP solves over a leading scenario axis
+             (``batched_qp``, ``make_scenario_init``,
+             ``make_scenario_step``, ``make_scenario_solve``; BASELINE
+             config 5), one host loop over the batch
+  utils/     registry, masked reductions over dataclasses of tensors
+             (per problem of a batch too), counted host reads, the
+             least-squares multiplier start
   convert    numpy -> port data (tests feed both packages the same data)
 
 Differences in idiom, not in algorithm: dataclasses of tensors replace

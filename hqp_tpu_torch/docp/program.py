@@ -244,6 +244,14 @@ class Docp:
                      var_mask=var_mask, con_mask=con_mask, **eqg)
         return f, qp
 
+    def make_qp_batch(self, v, Q=None):
+        """:meth:`make_qp` over a batch of iterates v [B, K1, nv] (and
+        Hessians Q [B, K1, nv, nv]) by ``torch.func.vmap``: objectives [B]
+        and one StageQP whose every field has the leading batch axis."""
+        if Q is None:
+            return torch.func.vmap(lambda vi: self.make_qp(vi))(v)
+        return torch.func.vmap(self.make_qp)(v, Q)
+
     def update_fbd_qp(self, qp: StageQP, v_old, v_new):
         """Re-evaluate only values at v_new, keeping the derivatives of qp
         (line search; Hqp_SqpProgram::update_fbd)."""

@@ -34,33 +34,38 @@ def equilibrate(S, U):
 
 
 def factor(S, U):
-    """S: [N, n, n] SPD diagonal blocks; U: [N-1, n, n] upper couplings.
-    Returns (L, W): per-block Cholesky factors and W_k = L_k^-1 U_k."""
+    """S: [..., N, n, n] SPD diagonal blocks; U: [..., N-1, n, n] upper
+    couplings (leading axes: a batch of systems).  Returns (L, W):
+    per-block Cholesky factors and W_k = L_k^-1 U_k."""
     Ls, Ws = [], []
-    Wprev = torch.zeros_like(S[0])
-    for k in range(S.shape[0]):
-        Lk = sl.chol(S[k] - Wprev.T @ Wprev, floor_rel=MOD_CHOL_FLOOR)
+    Wprev = torch.zeros_like(S[..., 0, :, :])
+    for k in range(S.shape[-3]):
+        Lk = sl.chol(S[..., k, :, :] - Wprev.mT @ Wprev,
+                     floor_rel=MOD_CHOL_FLOOR)
         Ls.append(Lk)
-        if k < U.shape[0]:
-            Wprev = sl.tri_lower_solve(Lk, U[k])
+        if k < U.shape[-3]:
+            Wprev = sl.tri_lower_solve(Lk, U[..., k, :, :])
             Ws.append(Wprev)
-    L = torch.stack(Ls)
-    W = torch.stack(Ws) if Ws else S.new_zeros((0,) + S.shape[1:])
+    L = torch.stack(Ls, dim=-3)
+    W = torch.stack(Ws, dim=-3) if Ws else \
+        S.new_zeros(S.shape[:-3] + (0,) + S.shape[-2:])
     return L, W
 
 
 def solve(L, W, rhs):
-    """Solve T x = rhs given factor(S, U) -> (L, W); rhs: [N, n]."""
-    N = L.shape[0]
+    """Solve T x = rhs given factor(S, U) -> (L, W); rhs: [..., N, n]."""
+    N = L.shape[-3]
     y = []
     for k in range(N):
-        r = rhs[k] if k == 0 else rhs[k] - W[k - 1].T @ y[-1]
-        y.append(sl.tri_lower_solve(L[k], r))
+        r = rhs[..., k, :] if k == 0 else \
+            rhs[..., k, :] - sl.mv(W[..., k - 1, :, :].mT, y[-1])
+        y.append(sl.tri_lower_solve(L[..., k, :, :], r))
     x = [None] * N
     for k in reversed(range(N)):
-        r = y[k] if k == N - 1 else y[k] - W[k] @ x[k + 1]
-        x[k] = sl.tri_upper_solve(L[k], r)
-    return torch.stack(x)
+        r = y[k] if k == N - 1 else \
+            y[k] - sl.mv(W[..., k, :, :], x[k + 1])
+        x[k] = sl.tri_upper_solve(L[..., k, :, :], r)
+    return torch.stack(x, dim=-2)
 
 
 # ---------------------------------------------------------------------------
@@ -70,7 +75,8 @@ def solve(L, W, rhs):
 
 
 def cr_factor(S, U):
-    """Cyclic-reduction factorization of SPD tridiag(U', S, U).
+    """Cyclic-reduction factorization of SPD tridiag(U', S, U), over any
+    leading batch axes.
 
     Returns ((levels...), base) consumed by cr_solve.  Each level, padded
     to an odd block count N = 2M+1 (identity diagonal, zero coupling):
@@ -81,56 +87,57 @@ def cr_factor(S, U):
     levels = []
     D, Uc = S, U
     n = S.shape[-1]
-    while D.shape[0] > 2:
-        N = D.shape[0]
+    while D.shape[-3] > 2:
+        N = D.shape[-3]
         if N % 2 == 0:
-            eye = torch.eye(n, dtype=D.dtype, device=D.device)
-            D = torch.cat([D, eye[None]], 0)
-            Uc = torch.cat([Uc, torch.zeros_like(eye)[None]], 0)
+            eye = torch.eye(n, dtype=D.dtype, device=D.device).expand(
+                D.shape[:-3] + (1, n, n))
+            D = torch.cat([D, eye], -3)
+            Uc = torch.cat([Uc, torch.zeros_like(eye)], -3)
             N += 1
         M = N // 2
-        Dodd = D[1::2]
-        A = Uc[0::2]
-        B = Uc[1::2]
+        Dodd = D[..., 1::2, :, :]
+        A = Uc[..., 0::2, :, :]
+        B = Uc[..., 1::2, :, :]
         Lo = sl.chol(Dodd, floor_rel=MOD_CHOL_FLOOR)
         R = sl.cho_solve(Lo, A.transpose(-1, -2)).transpose(-1, -2)
         Sm = sl.cho_solve(Lo, B)
-        Dn = D[0::2].clone()
-        Dn[:M] -= torch.einsum("mij,mkj->mik", R, A)
-        Dn[1:] -= torch.einsum("mji,mjk->mik", B, Sm)
-        Un = -torch.einsum("mij,mjk->mik", R, B)
+        Dn = D[..., 0::2, :, :].clone()
+        Dn[..., :M, :, :] -= torch.einsum("...mij,...mkj->...mik", R, A)
+        Dn[..., 1:, :, :] -= torch.einsum("...mji,...mjk->...mik", B, Sm)
+        Un = -torch.einsum("...mij,...mjk->...mik", R, B)
         levels.append((Lo, R, Sm, A, B))
         D, Uc = Dn, Un
     return (tuple(levels), factor(D, Uc))
 
 
 def cr_solve(fac, rhs):
-    """Solve with cr_factor output; rhs: [N, n]."""
+    """Solve with cr_factor output; rhs: [..., N, n]."""
     levels, base = fac
     stack = []
     b = rhs
     for (Lo, R, Sm, A, B) in levels:
-        N = b.shape[0]
+        N = b.shape[-2]
         if N % 2 == 0:
-            b = torch.cat([b, torch.zeros_like(b[:1])], 0)
-        M = b.shape[0] // 2
-        todd = sl.cho_solve(Lo, b[1::2])
-        bn = b[0::2].clone()
-        bn[:M] -= torch.einsum("mij,mj->mi", A, todd)
-        bn[1:] -= torch.einsum("mji,mj->mi", B, todd)
+            b = torch.cat([b, torch.zeros_like(b[..., :1, :])], -2)
+        M = b.shape[-2] // 2
+        todd = sl.cho_solve(Lo, b[..., 1::2, :])
+        bn = b[..., 0::2, :].clone()
+        bn[..., :M, :] -= torch.einsum("...mij,...mj->...mi", A, todd)
+        bn[..., 1:, :] -= torch.einsum("...mji,...mj->...mi", B, todd)
         stack.append((todd, N))
         b = bn
     x = solve(base[0], base[1], b)
     for (Lo, R, Sm, A, B), (todd, N) in zip(reversed(levels),
                                             reversed(stack)):
         xodd = (todd
-                - torch.einsum("mji,mj->mi", R, x[:-1])
-                - torch.einsum("mij,mj->mi", Sm, x[1:]))
-        M = xodd.shape[0]
-        out = x.new_zeros((2 * M + 1, x.shape[-1]))
-        out[0::2] = x
-        out[1::2] = xodd
-        x = out[:N]
+                - torch.einsum("...mji,...mj->...mi", R, x[..., :-1, :])
+                - torch.einsum("...mij,...mj->...mi", Sm, x[..., 1:, :]))
+        M = xodd.shape[-2]
+        out = x.new_zeros(x.shape[:-2] + (2 * M + 1, x.shape[-1]))
+        out[..., 0::2, :] = x
+        out[..., 1::2, :] = xodd
+        x = out[..., :N, :]
     return x
 
 

@@ -89,6 +89,12 @@ def tri_upper_solve(L, b):
     return x[..., 0] if vec else x
 
 
+def mv(A, v):
+    """A @ v for matrices A [..., n, m] and vectors v [..., m]: the plain
+    matrix-vector product for one matrix, a batched one otherwise."""
+    return A @ v if A.dim() == 2 else (A @ v[..., None])[..., 0]
+
+
 def cho_solve(L, b):
     """Solve A x = b given L = chol(A)."""
     return tri_upper_solve(L, tri_lower_solve(L, b))

@@ -8,8 +8,9 @@ pivoting -- safe after ``blocktri.equilibrate``, which the caller applies.
 
 :func:`thomas_solve` launches the kernel for CUDA tensors and takes
 :func:`thomas_solve_plain` only for CPU tensors.  Unlike the TPU kernel
-(f32 only), both keep the input dtype: float64 or float32.  A leading
-batch axis is optional: D [B, N, n, n] or [N, n, n].
+(f32 only), both keep the input dtype: float64 or float32.  Leading
+batch axes are optional: D [..., N, n, n] (a scenario batch's masters:
+[B, N, n, n]); the kernel takes them flattened, one warp a system.
 """
 
 from __future__ import annotations
@@ -77,8 +78,8 @@ def plan(N, n, dtype):
 
 
 def thomas_solve(D, U, rhs):
-    """Solve tridiag(U', D, U) x = rhs.  D: [B?, N, n, n], U: [B?, N-1, n,
-    n], rhs: [B?, N, n].
+    """Solve tridiag(U', D, U) x = rhs.  D: [..., N, n, n], U: [..., N-1,
+    n, n], rhs: [..., N, n].
 
     CPU tensors: :func:`thomas_solve_plain`.  CUDA tensors: one launch of
     the kernel with one warp per system, or an exception -- never a
@@ -96,7 +97,7 @@ def thomas_solve(D, U, rhs):
                         f"got {D.dtype}/{U.dtype}/{rhs.dtype}")
     N, n = D.shape[-3], D.shape[-1]
     lead = D.shape[:-3]
-    if D.dim() not in (3, 4) or D.shape[-2] != n or \
+    if D.dim() < 3 or D.shape[-2] != n or \
             U.shape != lead + (N - 1, n, n) or rhs.shape != lead + (N, n):
         raise ValueError(f"thomas_solve: shapes {tuple(D.shape)}, "
                          f"{tuple(U.shape)}, {tuple(rhs.shape)}")

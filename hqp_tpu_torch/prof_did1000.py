@@ -1,8 +1,9 @@
-"""Where the time of a DID-1000 (or Crane, or LQBlend) solve goes on the card.
+"""Where a solve's time goes on the card (DID-1000, Crane, LQBlend, scenarios).
 
     python -m hqp_tpu_torch.prof_did1000 [--kmax 1000] [--device cuda]
     python -m hqp_tpu_torch.prof_did1000 --program Crane [--kmax 50]
     python -m hqp_tpu_torch.prof_did1000 --program LQBlend [--kmax 2000]
+    python -m hqp_tpu_torch.prof_did1000 --program Scenarios256 [--kmax 256]
 
 Phases, each printed on lines of its own:
   1. chained KKT factor+solve links at the point of ``bench.py``'s
@@ -23,7 +24,13 @@ QP tolerance; phases 1 and 4 are DID's).  ``--program LQBlend`` runs them
 on ``solve_generated``'s solver for ``PrgLQBlend(n=kmax)`` (the general
 path: Nlp, DenseKKT, the Gerschgorin hela), with the dense layers split
 out: the saddle assembly and LU, the LU solves, the exact Hessian, the
-hela update and eigvalsh.  Phase 3 needs a CUDA device and is skipped
+hela update and eigvalsh.  ``--program Scenarios256`` runs them on one
+batched solve of BASELINE config 5 (``kmax`` scenarios of DID-60, the
+port's draws of seed 0, presolved at tau = 0.02, Mehrotra(PartitionedKKT(
+L=20), eps=1e-9) through ``make_scenario_solve``), with the batched
+make_qp, the presolve and the violation split out; there an "IP
+iteration" is one step of the whole batch.  Phase 3 needs a CUDA device
+and is skipped
 with ``--device cpu``, where the script serves only to check itself at a
 small ``--kmax``.
 """
@@ -35,6 +42,7 @@ import collections
 import statistics
 import subprocess
 import time
+import types
 
 import torch
 
@@ -43,6 +51,7 @@ from hqp_tpu_torch.docp.program import Docp
 from hqp_tpu_torch.models.crane import PrgCrane
 from hqp_tpu_torch.models.did import PrgDID
 from hqp_tpu_torch.models.nlp_gen import generated_solver
+from hqp_tpu_torch.parallel import scenarios
 from hqp_tpu_torch.qp import kkt as K_
 from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
 from hqp_tpu_torch.qp.mehrotra import Mehrotra
@@ -147,10 +156,30 @@ class LayerTimers:
         self._saved.clear()
 
 
+def scenario_solve(n, device):
+    """One batched solve of BASELINE config 5 on ``n`` scenarios (see the
+    module doc): (a record with the batch's loop steps as its IP
+    iterations, a summary of the verdicts)."""
+    prg = PrgDID(kmax=60, device=device)
+    vb = scenarios.batched_qp(prg, prg.setup(), n, scale=1e-3, seed=0)
+    Qb = (1e-2 * torch.eye(prg.nv, dtype=torch.float64, device=prg.device)
+          ).expand(n, prg.K + 1, prg.nv, prg.nv)
+    slv = Mehrotra(backend=PartitionedKKT(L=20), eps=1e-9)
+    st, viol = scenarios.make_scenario_solve(prg, slv,
+                                             presolve_tau=0.02)(vb, Qb)
+    its = st.iter.tolist()
+    n_opt = st.result.tolist().count(0)
+    return (types.SimpleNamespace(iter="-", qp_iters_total=max(its)),
+            f"{n_opt}/{n} optimal, {sum(its)} scenario IP iterations, "
+            f"largest original-row violation {float(viol.max()):.4e}")
+
+
 def solve_once(kmax, device, program="DID"):
     """One init/simulate/solve: DID at the recorded reference runs'
     qp_eps = 1e-7 (ROADMAP Q3 R7), Crane at the defaults, LQBlend as
-    solve_generated runs it (n = kmax)."""
+    solve_generated runs it (n = kmax); or one scenario batch."""
+    if program == "Scenarios256":
+        return scenario_solve(kmax, device)
     if program == "Crane":
         s = SqpPowell(PrgCrane(K=kmax, device=device), max_iters=100)
     elif program == "LQBlend":
@@ -177,6 +206,12 @@ def layer_split(kmax, device, program):
         lt.wrap(K_, "_saddle_factor", "saddle assembly + LU")
         lt.wrap(K_.DenseKKT, "solve", "KKT solve (excl. LU solves)")
         lt.wrap(K_, "_saddle_solve", "LU solves")
+    elif program == "Scenarios256":
+        lt.wrap(Docp, "make_qp_batch", "make_qp (batched, torch.func.vmap)")
+        lt.wrap(scenarios, "merge_parallel_rows", "presolve")
+        lt.wrap(scenarios, "original_row_violation", "original-row violation")
+        lt.wrap(PartitionedKKT, "factor", "KKT factor")
+        lt.wrap(PartitionedKKT, "solve", "KKT solve")
     else:
         lt.wrap(Docp, "simulate", "simulate")
         lt.wrap(Docp, "make_qp", "make_qp")
@@ -262,16 +297,18 @@ def default_eps(kmax, device):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--program", choices=("DID", "Crane", "LQBlend"),
+    ap.add_argument("--program",
+                    choices=("DID", "Crane", "LQBlend", "Scenarios256"),
                     default="DID")
     ap.add_argument("--kmax", type=int, default=None,
-                    help="stages (default 1000 for DID, 50 for Crane), or "
-                    "LQBlend's n (default 2000)")
+                    help="stages (default 1000 for DID, 50 for Crane), "
+                    "LQBlend's n (default 2000), or the scenarios of the "
+                    "batch (default 256)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     did = args.program == "DID"
-    kmax = args.kmax or {"DID": 1000, "Crane": 50,
-                         "LQBlend": 2000}[args.program]
+    kmax = args.kmax or {"DID": 1000, "Crane": 50, "LQBlend": 2000,
+                         "Scenarios256": 256}[args.program]
     if args.device == "cuda":
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -98,19 +98,21 @@ def kkt_residual(qp, z, w, mask, r1, r2, r3, r4, dx, dy, dz, dw):
                   mk.tmap(lambda a, zi, wi, dzi, dwi: a - (zi * dwi
                                                           + wi * dzi),
                           r4, z, w, dz, dw), 0.0)
+    nb = qp.nb
     res = torch.maximum(
-        torch.maximum(mk.norm_inf(e1), mk.norm_inf(e2, emask)),
-        torch.maximum(mk.norm_inf(e3, mask), mk.norm_inf(e4, mask)))
+        torch.maximum(mk.norm_inf(e1, nb=nb), mk.norm_inf(e2, emask, nb)),
+        torch.maximum(mk.norm_inf(e3, mask, nb), mk.norm_inf(e4, mask, nb)))
     return e1, e2, e3, e4, res
 
 
 def rhs_scale(qp, mask, r1, r2, r3, r4):
     """Masked infinity norm of the stacked KKT rhs (the scale of the
-    relative refinement tolerance)."""
-    s = mk.norm_inf(r1, qp.x_mask())
-    s = torch.maximum(s, mk.norm_inf(r2, qp.eq_mask()))
-    s = torch.maximum(s, mk.norm_inf(r3, mask))
-    return torch.maximum(s, mk.norm_inf(r4, mask))
+    relative refinement tolerance), one per problem of a batch."""
+    nb = qp.nb
+    s = mk.norm_inf(r1, qp.x_mask(), nb)
+    s = torch.maximum(s, mk.norm_inf(r2, qp.eq_mask(), nb))
+    s = torch.maximum(s, mk.norm_inf(r3, mask, nb))
+    return torch.maximum(s, mk.norm_inf(r4, mask, nb))
 
 
 def refine(solve_fn, qp, z, w, mask, r1, r2, r3, r4, sol,
@@ -124,9 +126,12 @@ def refine(solve_fn, qp, z, w, mask, r1, r2, r3, r4, sol,
     measured and reverted).  The loop runs on the host: each test reads
     one small tensor (:func:`~hqp_tpu_torch.utils.sync.host`), one at
     entry and one per round, and the common already-accurate case exits
-    at the entry test."""
+    at the entry test.  A batched QP takes :func:`_refine_batch`."""
     eps = eps * torch.clamp(rhs_scale(qp, mask, r1, r2, r3, r4), min=1.0)
     e1, e2, e3, e4, res = kkt_residual(qp, z, w, mask, r1, r2, r3, r4, *sol)
+    if qp.nb:
+        return _refine_batch(solve_fn, qp, z, w, mask, (r1, r2, r3, r4),
+                             sol, (e1, e2, e3, e4), res, eps, max_rounds)
     go = host(res > eps)
     i = 0
     while go and i < max_rounds:
@@ -140,6 +145,30 @@ def refine(solve_fn, qp, z, w, mask, r1, r2, r3, r4, sol,
             break
         sol, (e1, e2, e3, e4), res = new, (ne1, ne2, ne3, ne4), nres
         go = above
+        i += 1
+    return sol
+
+
+def _refine_batch(solve_fn, qp, z, w, mask, rhs, sol, errs, res, eps,
+                  max_rounds):
+    """:func:`refine` over a batch of QPs, as ``jax.vmap`` runs the
+    reference's refinement ``while_loop``: rounds run while any problem is
+    live (residual above its own ``eps``, every round so far accepted,
+    fewer than ``max_rounds``); each round solves for every problem and
+    keeps the correction only where the problem is live and its residual
+    fell.  One host read at entry and one per round."""
+    live = res > eps
+    i = 0
+    while i < max_rounds and host(live.any()):
+        cx, cy, cz, cw = solve_fn(*errs)
+        dx, dy, dz, dw = sol
+        new = (dx + cx, mk.add(dy, cy), mk.add(dz, cz), mk.add(dw, cw))
+        *nerrs, nres = kkt_residual(qp, z, w, mask, *rhs, *new)
+        better = live & (nres < res)
+        sol = mk.sel(better, new, sol)
+        errs = mk.sel(better, tuple(nerrs), errs)
+        res = torch.where(better, nres, res)
+        live = better & (nres > eps)
         i += 1
     return sol
 
@@ -160,8 +189,8 @@ def stage_eq_penalty(qp: StageQP):
     fm = qp.fixed_mask().to(qp.Q.dtype)
     Hp = torch.diag_embed(fm * FIX_BIG)
     if qp.has_gen_eq():
-        Em = qp.E * qp.eqg_mask[:, :, None]
-        Hp = Hp + FIX_BIG * torch.einsum("kem,ken->kmn", Em, Em)
+        Em = qp.E * qp.eqg_mask[..., None]
+        Hp = Hp + FIX_BIG * torch.einsum("...kem,...ken->...kmn", Em, Em)
     return Hp
 
 
@@ -169,15 +198,15 @@ def _recover_gen_multipliers(qp, resid):
     """Per-stage least-squares recovery of general-equality multipliers
     from the stationarity residual: (E E' + reg) yg = E resid, excluding
     fixed-variable columns."""
-    Em = qp.E * qp.eqg_mask[:, :, None]
+    Em = qp.E * qp.eqg_mask[..., None]
     free = (~qp.fixed_mask()).to(Em.dtype)
-    Ef = Em * free[:, None, :]
+    Ef = Em * free[..., None, :]
     meq = qp.meq
     eye = torch.eye(meq, dtype=Em.dtype, device=Em.device)
-    G = torch.einsum("kim,kjm->kij", Ef, Ef)
+    G = torch.einsum("...kim,...kjm->...kij", Ef, Ef)
     G = G + 1e-12 * eye + torch.diag_embed(
         1.0 - qp.eqg_mask.to(G.dtype))
-    rhs = torch.einsum("kim,km->ki", Ef, resid * free)
+    rhs = torch.einsum("...kim,...km->...ki", Ef, resid * free)
     yg = torch.linalg.solve(G, rhs[..., None])[..., 0]
     return torch.where(qp.eqg_mask, yg, 0.0)
 
@@ -190,7 +219,7 @@ def stage_reduce_rhs(qp, z, w, mask, r1, r2, r3, r4):
     g2 = g - FIX_BIG * torch.where(fm, r2["fix"], 0.0)
     if qp.has_gen_eq():
         rg = torch.where(qp.eqg_mask, r2["gen"], 0.0)
-        g2 = g2 - FIX_BIG * torch.einsum("kij,ki->kj", qp.E, rg)
+        g2 = g2 - FIX_BIG * torch.einsum("...kij,...ki->...kj", qp.E, rg)
     return g, g2
 
 
@@ -209,7 +238,7 @@ def stage_recover(qp, z, w, mask, g, dx, dyd, r2, r3, r4):
     if qp.has_gen_eq():
         dyg = _recover_gen_multipliers(qp, resid)
         resid = resid - torch.einsum(
-            "kij,ki->kj", qp.E * qp.eqg_mask[:, :, None], dyg)
+            "...kij,...ki->...kj", qp.E * qp.eqg_mask[..., None], dyg)
         dy["gen"] = dyg
     dy["fix"] = torch.where(fm, resid, 0.0)
     dz, dw = recover_zw(qp, z, w, mask, dx, r3, r4)
@@ -250,10 +279,10 @@ def _stage_hessians(qp: StageQP, z: IneqGroups, w: IneqGroups,
     sig = barrier_ratios(z, w, mask)
     diag_box = sig.bl + sig.bu                       # [K1, nv]
     sgen = sig.gl + sig.gu                           # [K1, mc]
-    H = qp.Q + torch.einsum("kmi,km,kmj->kij", qp.C, sgen, qp.C)
+    H = qp.Q + torch.einsum("...kmi,...km,...kmj->...kij", qp.C, sgen, qp.C)
     H = H + torch.diag_embed(diag_box)
     vm = qp.x_mask().to(H.dtype)
-    H = H * vm[:, :, None] * vm[:, None, :]
+    H = H * vm[..., :, None] * vm[..., None, :]
     return H + torch.diag_embed(1.0 - vm)
 
 

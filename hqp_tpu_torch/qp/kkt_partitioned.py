@@ -19,6 +19,11 @@ dynamically fixed variables (lb == ub) are pinned by a large diagonal
 penalty with multipliers recovered from stationarity, made exact by
 refinement (hqp/Hqp_IpSpSC.C's role, with the stage-parallel split of
 SURVEY.md section 2.7.3).
+
+A batch of QPs (leading batch axes on every field, a scenario batch) is
+factored and solved at once: the B*P interiors of the whole batch go
+through ONE K1 launch per factorization, flattened to [B*P, s, s], and
+the B masters through one K2 launch per master solve on [B, P+1, nx, nx].
 """
 
 from __future__ import annotations
@@ -37,15 +42,17 @@ from hqp_tpu_torch.utils.registry import modules
 
 @dataclasses.dataclass
 class PartFactors:
-    Minv: torch.Tensor    # [P, s, s] inverse of the SCALED interior
-    Dscale: torch.Tensor  # [P, s] Ruiz scaling: MII^-1 ~= D Minv D
-    MII: torch.Tensor     # [P, s, s] SCALED interior (f64)
-    W: torch.Tensor       # [P, s, 2nx] M_II^-1 M_IB (inner-refined)
-    MIB: torch.Tensor     # [P, s, 2nx]
+    Minv: torch.Tensor    # [B*P, s, s] inverse of the SCALED interior
+    Dscale: torch.Tensor  # [B*P, s] Ruiz scaling: MII^-1 ~= D Minv D
+    MII: torch.Tensor     # [B*P, s, s] SCALED interior (f64)
+    W: torch.Tensor       # [B*P, s, 2nx] M_II^-1 M_IB (inner-refined)
+    MIB: torch.Tensor     # [B*P, s, 2nx]
     master: tuple         # ("thomas", Sm, Um, Sm_k, Um_k) | ("cr", factors)
-    dM: torch.Tensor      # [P+1, nx] Jacobi scaling of the master
-    LuuK: torch.Tensor    # [nu, nu] terminal u-block Cholesky
-    KgainK: torch.Tensor  # [nu, nx]
+    dM: torch.Tensor      # [B, P+1, nx] Jacobi scaling of the master
+    LuuK: torch.Tensor    # [B, nu, nu] terminal u-block Cholesky
+    KgainK: torch.Tensor  # [B, nu, nx]
+    # (the interiors of all problems of a batch flattened into one axis;
+    # no B axis for one problem)
 
 
 def _interior_dim(L, nx, nu):
@@ -58,7 +65,7 @@ def _interior_apply(fac0, rho, inner):
     refinement rounds carried entirely in the Ruiz-scaled space (the raw
     interior mixes 1e10 penalty rows with 1e-8 regularization rows; after
     equilibration the refinement touches only unit-scaled quantities).
-    rho: [P, s] or [P, s, m]."""
+    rho: [P, s] or [P, s, m] (P: every interior of a batch)."""
     Minv, Dd, MII_s = fac0
     vec = rho.dim() == 2
     if vec:
@@ -77,10 +84,11 @@ def _interior_apply(fac0, rho, inner):
 
 
 def _master_matvec(Sm, Um, x):
-    """Equilibrated master block-tridiagonal matvec (f64)."""
-    y = torch.einsum("pij,pj->pi", Sm, x)
-    y[:-1] += torch.einsum("pij,pj->pi", Um, x[1:])
-    y[1:] += torch.einsum("pji,pj->pi", Um, x[:-1])
+    """Equilibrated master block-tridiagonal matvec (f64); the stage axis
+    is -2 of x, behind any batch axes."""
+    y = torch.einsum("...pij,...pj->...pi", Sm, x)
+    y[..., :-1, :] += torch.einsum("...pij,...pj->...pi", Um, x[..., 1:, :])
+    y[..., 1:, :] += torch.einsum("...pji,...pj->...pi", Um, x[..., :-1, :])
     return y
 
 
@@ -173,11 +181,13 @@ class PartitionedKKT:
 
     @staticmethod
     def _coupling_masks(qp: StageQP, L, P):
-        """Masks for the -I couplings: interior states and partition-end
-        boundary states."""
-        xs = qp.var_mask[:, : qp.nx].to(qp.A.dtype)   # [K1, nx]
-        mm_int = xs[: qp.K].reshape(P, L, qp.nx)[:, 1:]
-        mm_e = xs[L::L]
+        """Masks for the -I couplings: interior states [B*P, L-1, nx] and
+        partition-end boundary states [B*P, nx], the partitions of a batch
+        flattened."""
+        xs = qp.var_mask[..., : qp.nx].to(qp.A.dtype)   # [K1, nx]
+        BP = xs[..., 0, 0].numel() * P
+        mm_int = xs[..., : qp.K, :].reshape(BP, L, qp.nx)[:, 1:]
+        mm_e = xs[..., L::L, :].reshape(BP, qp.nx)
         return mm_int, mm_e
 
     # -- assembly ------------------------------------------------------------
@@ -318,7 +328,8 @@ class PartitionedKKT:
     def _partition_blocks(cls, Hs, As, mm_int, mm_e, dims, dual_reg):
         """Per-partition interior saddle blocks MII and boundary couplings
         MIB: one gather and one scatter-add (index_put_ with accumulate)
-        per target, with static maps cached on the device."""
+        per target, with static maps cached on the device.  The partitions
+        of a batch come flattened into the leading axis."""
         L, s, nx, nu, nv, offs = dims
         mp = cls._device_maps(dims, Hs.device, Hs.dtype)
         P = Hs.shape[0]
@@ -343,14 +354,15 @@ class PartitionedKKT:
         return MII, MIB
 
     def _split_stage_data(self, qp: StageQP, H, L, P):
-        """Per-partition stage data [P, L, ...] plus the boundary and
-        terminal blocks."""
+        """Per-partition stage data [B*P, L, ...] (the partitions of a
+        batch flattened) plus the boundary [B, P+1, ...] and terminal
+        [B, ...] blocks."""
         nv, nx = qp.nv, qp.nx
-        Hs = H[:-1].reshape(P, L, nv, nv)
-        As = qp.A_masked().reshape(P, L, nx, nv)
+        Hs = H[..., :-1, :, :].reshape(-1, L, nv, nv)
+        As = qp.A_masked().reshape(-1, L, nx, nv)
         mm_int, mm_e = self._coupling_masks(qp, L, P)
-        Hb = H[::L][:, :nx, :nx]                 # [P+1, nx, nx] boundary
-        return Hs, As, mm_int, mm_e, Hb, H[-1]
+        Hb = H[..., ::L, :nx, :nx]               # [P+1, nx, nx] boundary
+        return Hs, As, mm_int, mm_e, Hb, H[..., -1, :, :]
 
     def _interior_factor(self, MII, MIB):
         """Ruiz-equilibrated interior inverse (kernel K1 at the factor
@@ -359,7 +371,8 @@ class PartitionedKKT:
         Symmetric Ruiz equilibration in f64 first: the interiors mix the
         1e-8 dual regularization, O(1) Jacobians and 1e10 penalties, and
         row-max scaling drives every row/column to unit norm (diagonal
-        Jacobi scaling fails: the dual rows have near-zero diagonals)."""
+        Jacobi scaling fails: the dual rows have near-zero diagonals).
+        MII: [B*P, s, s], every interior of a batch: one K1 launch."""
         Dd = torch.ones(MII.shape[:2], dtype=MII.dtype, device=MII.device)
         MII_s = MII
         for _ in range(3):
@@ -381,19 +394,20 @@ class PartitionedKKT:
     @staticmethod
     def _terminal(HK, nx):
         """Terminal stage u-elimination."""
-        LuuK = sl.chol(HK[nx:, nx:])
-        KgainK = sl.cho_solve(LuuK, HK[nx:, :nx])
-        PKxx = HK[:nx, :nx] - HK[:nx, nx:] @ KgainK
+        LuuK = sl.chol(HK[..., nx:, nx:])
+        KgainK = sl.cho_solve(LuuK, HK[..., nx:, :nx])
+        PKxx = HK[..., :nx, :nx] - HK[..., :nx, nx:] @ KgainK
         return LuuK, KgainK, PKxx
 
     def _master_build(self, Schur, Hb, PKxx, nx):
         """Assemble and factor the boundary master block-tridiagonal
-        system from the per-partition Schur blocks."""
+        system from the per-partition Schur blocks ([B, P, 2nx, 2nx] for a
+        batch: B masters, one K2 system each)."""
         D = -Hb
-        D[-1] = -PKxx
-        D[:-1] += Schur[:, :nx, :nx]
-        D[1:] += Schur[:, nx:, nx:]
-        Off = Schur[:, :nx, nx:]                 # couples x_p to x_{p+1}
+        D[..., -1, :, :] = -PKxx
+        D[..., :-1, :, :] += Schur[..., :nx, :nx]
+        D[..., 1:, :, :] += Schur[..., nx:, nx:]
+        Off = Schur[..., :nx, nx:]               # couples x_p to x_{p+1}
         Sm, Um, dM = blocktri.equilibrate(-D, -Off)
         if self._master_k() == "thomas" and nx <= thomas_cuda.MAX_BLOCK:
             lu = self._lu()
@@ -421,6 +435,7 @@ class PartitionedKKT:
         # Schur in f64 from the inner-refined W: the master must be
         # assembled to f64 accuracy or it loses positive definiteness
         Schur = -torch.einsum("psb,psc->pbc", MIB, W)
+        Schur = Schur.reshape(qp.batch_shape + (P,) + Schur.shape[-2:])
         master, dM = self._master_build(Schur, Hb, PKxx, nx)
         return PartFactors(Minv=Minv, Dscale=Dd, MII=MII_s, W=W, MIB=MIB,
                            master=master, dM=dM, LuuK=LuuK, KgainK=KgainK)
@@ -432,36 +447,47 @@ class PartitionedKKT:
         nx, nu, nv = qp.nx, qp.nu, qp.nv
         L, P, dims = self._dims(qp)
         off_y = dims[-1][2]
-        gx, gu = g[:, :nx], g[:, nx:]
+        lead = qp.batch_shape
+        gx, gu = g[..., :nx], g[..., nx:]
 
-        gsp = g[:-1].reshape(P, L, nv)
-        # interior rhs in the order [u_{pL} | v_{pL+1..} | y_{pL..}]
-        rhoI = torch.cat([gsp[:, 0, nx:], gsp[:, 1:].reshape(P, -1),
-                          r2dyn.reshape(P, L * nx)], dim=1)
+        gsp = g[..., :-1, :].reshape(-1, L, nv)
+        BP = gsp.shape[0]
+        # interior rhs in the order [u_{pL} | v_{pL+1..} | y_{pL..}], the
+        # partitions of a batch flattened
+        rhoI = torch.cat([gsp[:, 0, nx:], gsp[:, 1:].reshape(BP, -1),
+                          r2dyn.reshape(BP, L * nx)], dim=1)
 
-        rhoB = gx[::L].clone()
-        rhoB[-1] = gx[-1] - fac.KgainK.T @ gu[-1]
+        rhoB = gx[..., ::L, :].clone()
+        rhoB[..., -1, :] = gx[..., -1, :] - sl.mv(fac.KgainK.mT,
+                                                  gu[..., -1, :])
 
         # condense the interiors onto the boundaries
         inner = self._inner()
         t = _interior_apply((fac.Minv, fac.Dscale, fac.MII), rhoI, inner)
         corr = torch.einsum("psb,ps->pb", fac.MIB, t)     # [P, 2nx]
-        rhoB[:-1] -= corr[:, :nx]
-        rhoB[1:] -= corr[:, nx:]
+        corr = corr.reshape(lead + (P, 2 * nx))
+        rhoB[..., :-1, :] -= corr[..., :nx]
+        rhoB[..., 1:, :] -= corr[..., nx:]
 
         xB = _master_solve(fac.master, fac.dM, -rhoB, inner)
 
         # back-substitute the interiors
-        xpair = torch.cat([xB[:-1], xB[1:]], dim=1)       # [P, 2nx]
-        zeta = t - torch.einsum("psb,pb->ps", fac.W, xpair)
-        u0 = zeta[:, :nu]
-        vint = zeta[:, nu:off_y].reshape(P, L - 1, nv)
-        dy = zeta[:, off_y:].reshape(P * L, nx)
+        xpair = torch.cat([xB[..., :-1, :], xB[..., 1:, :]], dim=-1)
+        zeta = t - torch.einsum("psb,pb->ps", fac.W,
+                                xpair.reshape(BP, 2 * nx))
+        zeta = zeta.reshape(lead + (P, zeta.shape[-1]))
+        u0 = zeta[..., :nu]
+        vint = zeta[..., nu:off_y].reshape(lead + (P, L - 1, nv))
+        dy = zeta[..., off_y:].reshape(lead + (P * L, nx))
         vfull = torch.cat(
-            [torch.cat([xB[:-1], u0], dim=1)[:, None, :], vint], dim=1)
-        duK = -(sl.cho_solve(fac.LuuK, gu[-1]) + fac.KgainK @ xB[-1])
-        dx = torch.cat([vfull.reshape(P * L, nv),
-                        torch.cat([xB[-1], duK])[None]], dim=0)
+            [torch.cat([xB[..., :-1, :], u0], dim=-1)[..., None, :], vint],
+            dim=-2)
+        duK = -(sl.cho_solve(fac.LuuK, gu[..., -1, :])
+                + sl.mv(fac.KgainK, xB[..., -1, :]))
+        dx = torch.cat([vfull.reshape(lead + (P * L, nv)),
+                        torch.cat([xB[..., -1, :], duK], dim=-1)[..., None,
+                                                                 :]],
+                       dim=-2)
         return dx, dy
 
     def solve(self, fac, qp: StageQP, z, w, mask, r1, r2, r3, r4):

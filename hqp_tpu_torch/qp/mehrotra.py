@@ -18,6 +18,15 @@ equality-only branch: one Newton step per QP.  (A ``StageQP`` always
 carries its [K+1, nv] box groups, so its masked-off rows run the general
 iteration, in both packages.)
 
+A batch of StageQPs (leading batch axes, :mod:`hqp_tpu_torch.parallel.
+scenarios`) runs as ``jax.vmap`` runs the reference's
+:meth:`solve_device`: the state scalars get the batch shape, one host loop
+steps every problem in lockstep while any is live, and each problem is
+frozen at its own result and iteration count, as if solved alone.  The
+step branch becomes a per-problem select.  Hot starts and the
+equality-only branch stay unbatched (a batch raises
+``NotImplementedError``).
+
 Not ported yet: ``mod_terlaky``, ``gondzio_correctors > 0``,
 ``init_method != 0`` and ``cheap_predictor`` (constructing with them
 raises ``NotImplementedError``).
@@ -70,6 +79,7 @@ class IPState:
     mu0: torch.Tensor
     norm_r0: torch.Tensor
     phimin: torch.Tensor     # [max_iters + 1]
+    # (a batch: every scalar of the batch shape, phimin [*batch, max+1])
 
 
 class Mehrotra:
@@ -103,42 +113,57 @@ class Mehrotra:
 
     # -- state construction --------------------------------------------------
 
+    @staticmethod
+    def _lead(qp):
+        """The batch shape of ``qp`` (() for one problem)."""
+        return qp.c.shape[:qp.nb]
+
     def _scalars(self, qp):
         """Fresh loop scalars: iteration 0, ITERATING, phi = inf, alpha 1."""
-        dev = qp.device
+        dev, lead = qp.device, self._lead(qp)
         f = dict(dtype=torch.float64, device=dev)
-        return dict(iter=torch.zeros((), dtype=torch.int64, device=dev),
-                    result=torch.full((), ITERATING, dtype=torch.int64,
+        return dict(iter=torch.zeros(lead, dtype=torch.int64, device=dev),
+                    result=torch.full(lead, ITERATING, dtype=torch.int64,
                                       device=dev),
-                    test=torch.full((), float("inf"), **f),
-                    alpha=torch.ones((), **f),
-                    phimin=torch.zeros(self.max_iters + 1, **f))
+                    test=torch.full(lead, float("inf"), **f),
+                    alpha=torch.ones(lead, **f),
+                    phimin=torch.zeros(lead + (self.max_iters + 1,), **f))
 
     def init_state(self, qp):
         mask = qp.ineq_mask()
         ones = mk.fill(mask, 1.0)
         f = dict(dtype=torch.float64, device=qp.device)
+        lead = self._lead(qp)
         return IPState(
             x=qp.zero_x(), y=mk.fill(qp.eq_offsets(), 0.0),
             z=ones, w=ones, z_hot=ones, w_hot=ones,
-            gap=torch.zeros((), **f), mu0=torch.ones((), **f),
-            norm_r0=torch.ones((), **f), **self._scalars(qp))
+            gap=torch.zeros(lead, **f), mu0=torch.ones(lead, **f),
+            norm_r0=torch.ones(lead, **f), **self._scalars(qp))
 
     @staticmethod
     def _no_ineq(qp):
         """Structurally no inequality rows (reference's m == 0 case)."""
         return mk.tsize(qp.ineq_mask()) == 0
 
+    @staticmethod
+    def _unbatched(qp, what):
+        if qp.nb:
+            raise NotImplementedError(
+                f"Mehrotra: {what} of a batch of QPs is not ported (the "
+                "batch path is the cold-started solve_device)")
+
     # -- cold start (Hqp_IpsMehrotra.C:209-327) ------------------------------
 
     def cold_start(self, qp, state: IPState):
+        nb = qp.nb
         if self._no_ineq(qp):
+            self._unbatched(qp, "the equality-only branch")
             # program without inequality constraints (C:322-327)
             return dataclasses.replace(
                 state, x=qp.zero_x(), y=mk.fill(qp.eq_offsets(), 0.0),
                 **self._scalars(qp))
         mask = qp.ineq_mask()
-        m = torch.clamp(mk.count(mask), min=1.0)
+        m = torch.clamp(mk.count(mask, nb), min=1.0)
         ones = mk.where(mask, mk.fill(mask, 1.0), 1.0)
         z = w = ones
 
@@ -152,21 +177,22 @@ class Mehrotra:
                                             r1, r2, r3, r4)
 
         # Mehrotra's initial point shift (C:299-315)
-        dz = _unzero(dz, mask)
-        dw = _unzero(dw, mask)
-        delz = torch.clamp(-1.5 * mk.vmin(dz, mask), min=0.0)
-        delw = torch.clamp(-1.5 * mk.vmin(dw, mask), min=0.0)
-        d1 = mk.tmap(lambda a: a + delz, dz)
-        d2 = mk.tmap(lambda a: a + delw, dw)
-        gap = mk.inner(d1, d2, mask)
-        den_z = mk.total(dw, mask) + m * delw
+        dz = _unzero(dz, mask, nb)
+        dw = _unzero(dw, mask, nb)
+        delz = torch.clamp(-1.5 * mk.vmin(dz, mask, nb), min=0.0)
+        delw = torch.clamp(-1.5 * mk.vmin(dw, mask, nb), min=0.0)
+        d1 = mk.tmap(lambda a: a + mk.bc(delz, a), dz)
+        d2 = mk.tmap(lambda a: a + mk.bc(delw, a), dw)
+        gap = mk.inner(d1, d2, mask, nb)
+        den_z = mk.total(dw, mask, nb) + m * delw
         delz = delz + torch.where(den_z != 0.0, 0.5 * gap / den_z, 0.0)
-        den_w = mk.total(dz, mask) + m * delz
+        den_w = mk.total(dz, mask, nb) + m * delz
         delw = delw + torch.where(den_w != 0.0, 0.5 * gap / den_w, 0.0)
-        z = mk.where(mask, mk.tmap(lambda a: a + delz, dz), 1.0)
-        w = mk.where(mask, mk.tmap(lambda a: a + delw, dw), 1.0)
+        z = mk.where(mask, mk.tmap(lambda a: a + mk.bc(delz, a), dz), 1.0)
+        w = mk.where(mask, mk.tmap(lambda a: a + mk.bc(delw, a), dw), 1.0)
 
-        degen = ~(torch.isfinite(mk.norm_inf(dx)) & torch.isfinite(gap))
+        degen = ~(torch.isfinite(mk.norm_inf(dx, nb=nb))
+                  & torch.isfinite(gap))
         sc = self._scalars(qp)
         sc["result"] = torch.where(degen, DEGENERATE, sc["result"])
         return IPState(
@@ -175,24 +201,29 @@ class Mehrotra:
 
     def hot_start(self, qp, state: IPState):
         """Re-use the snapshotted (z, w); Hqp_IpsMehrotra.C:330-352."""
+        self._unbatched(qp, "a hot start")
         return dataclasses.replace(state, z=state.z_hot, w=state.w_hot,
                                    **self._scalars(qp))
 
     # -- one predictor-corrector step (Hqp_IpsMehrotra.C:355-693) ------------
 
     def step(self, qp, state: IPState) -> IPState:
+        """One step; for a batch, of every problem, each taking its own
+        branch (the factorization is skipped when none takes a step)."""
         if self._no_ineq(qp):
+            self._unbatched(qp, "the equality-only branch")
             return self._step_eq_only(qp, state)
         eps = self.eps
+        nb = qp.nb
         mask = qp.ineq_mask()
-        m = torch.clamp(mk.count(mask), min=1.0)
+        m = torch.clamp(mk.count(mask, nb), min=1.0)
         x, y, z, w = state.x, state.y, state.z, state.w
 
         # residuals of the KKT conditions (C:425-445)
         Qx = qp.matvec_Q(x)
-        gap = (mk.inner(x, Qx + qp.c)
-               + mk.inner(y, qp.eq_offsets(), qp.eq_mask())
-               + mk.inner(z, qp.ineq_offsets(), mask))
+        gap = (mk.inner(x, Qx + qp.c, nb=nb)
+               + mk.inner(y, qp.eq_offsets(), qp.eq_mask(), nb)
+               + mk.inner(z, qp.ineq_offsets(), mask, nb))
         r1 = torch.where(
             qp.x_mask(),
             Qx + qp.c - qp.matvec_eqT(y) - qp.matvec_ineqT(
@@ -200,11 +231,12 @@ class Mehrotra:
         r2 = mk.scale(-1.0, qp.eval_eq(x))
         r3 = mk.where(mask, mk.sub(w, qp.eval_ineq(x)), 0.0)
         r4 = mk.where(mask, mk.tmap(lambda a, b: -a * b, z, w), 0.0)
-        mu = mk.inner(z, w, mask) / m
+        mu = mk.inner(z, w, mask, nb) / m
 
         norm_r = torch.maximum(
-            torch.maximum(mk.norm_inf(r1), mk.norm_inf(r2, qp.eq_mask())),
-            mk.norm_inf(r3, mask))
+            torch.maximum(mk.norm_inf(r1, nb=nb),
+                          mk.norm_inf(r2, qp.eq_mask(), nb)),
+            mk.norm_inf(r3, mask, nb))
         norm_data = qp.norm_data()
 
         first = state.iter == 0
@@ -212,25 +244,30 @@ class Mehrotra:
         norm_r0 = torch.where(first, norm_r, state.norm_r0)
 
         phi = (norm_r + gap.abs()) / norm_data
-        phimin = state.phimin.index_put((state.iter.reshape(1),),
-                                        phi.reshape(1))
+        if nb:
+            phimin = state.phimin.scatter(-1, state.iter[..., None],
+                                          phi[..., None])
+        else:
+            phimin = state.phimin.index_put((state.iter.reshape(1),),
+                                            phi.reshape(1))
 
         # hot start snapshot while still far from the central path (C:475-478)
         snap = phi > eps ** 0.3333
-        z_hot = mk.tmap(lambda a, b: torch.where(snap, a, b), z, state.z_hot)
-        w_hot = mk.tmap(lambda a, b: torch.where(snap, a, b), w, state.w_hot)
+        z_hot = mk.sel(snap, z, state.z_hot)
+        w_hot = mk.sel(snap, w, state.w_hot)
 
         # termination / abort tests (C:482-519)
         iters = torch.arange(self.max_iters + 1, device=phi.device)
-        seen = iters <= state.iter
-        pm = torch.where(seen, phimin, float("inf")).amin()
+        it = state.iter[..., None]
+        seen = iters <= it
+        pm = torch.where(seen, phimin, float("inf")).amin(-1)
         # never optimal at entry (iter 0): a cold start enters with zero
         # (x, y), a hot start with the previous solution
         optimal = (mu <= eps) & (norm_r <= eps * norm_data) \
             & (state.iter > 0)
         subopt = (phi > eps) & (phi >= 1.0e4 * pm)
-        seen30 = (iters >= 1) & (iters <= state.iter - 30)
-        pm30 = torch.where(seen30, phimin, float("inf")).amin()
+        seen30 = (iters >= 1) & (iters <= it - 30)
+        pm30 = torch.where(seen30, phimin, float("inf")).amin(-1)
         slow = (state.iter >= 30) & (pm >= 0.5 * pm30)
         blowup = (norm_r > eps * norm_data) & \
             (norm_r / mu >= 1.0e8 * norm_r0 / mu0)
@@ -245,7 +282,7 @@ class Mehrotra:
         base = dataclasses.replace(
             state, z_hot=z_hot, w_hot=w_hot, gap=gap, test=phi, mu0=mu0,
             norm_r0=norm_r0, phimin=phimin, result=result)
-        if not host(take_step):
+        if not host(take_step.any() if nb else take_step):
             return base
 
         # factorization + affine predictor (C:524-562)
@@ -253,41 +290,41 @@ class Mehrotra:
         dxa, dya, dza, dwa = self.backend.solve(
             fac, qp, z, w, mask, r1, r2, r3, r4)
         alpha_aff = torch.clamp(
-            torch.minimum(mk.ratio_min(z, dza, mask),
-                          mk.ratio_min(w, dwa, mask)), 0.0, 1.0)
+            torch.minimum(mk.ratio_min(z, dza, mask, nb),
+                          mk.ratio_min(w, dwa, mask, nb)), 0.0, 1.0)
 
         # Mehrotra's original centering (C:578-583)
         zp = mk.where(mask, mk.axpy(alpha_aff, dza, z), 0.0)
         wp = mk.where(mask, mk.axpy(alpha_aff, dwa, w), 0.0)
-        mu_aff = mk.inner(zp, wp, mask) / m
+        mu_aff = mk.inner(zp, wp, mask, nb) / m
         sigma = (mu_aff / mu) ** 3.0
         smm = sigma * mu
         r4c = mk.where(
             mask,
-            mk.tmap(lambda zi, wi, a, b: -(zi * wi + a * b - smm),
+            mk.tmap(lambda zi, wi, a, b: -(zi * wi + a * b - mk.bc(smm, zi)),
                     z, w, dza, dwa), 0.0)
         dx, dy, dz, dw = self.backend.solve(fac, qp, z, w, mask,
                                             r1, r2, r3, r4c)
 
         # Mehrotra's adaptive step size (C:625-669)
-        alpha = self._adaptive_alpha(z, w, dz, dw, mask, m)
+        alpha = self._adaptive_alpha(z, w, dz, dw, mask, m, nb)
 
-        x_n = x + alpha * dx
+        x_n = x + mk.bc(alpha, x) * dx
         y_n = mk.axpy(alpha, dy, y)
         z_n = mk.where(mask, mk.axpy(alpha, dz, z), 1.0)
         w_n = mk.where(mask, mk.axpy(alpha, dw, w), 1.0)
 
-        mu_n = mk.inner(z_n, w_n, mask) / m
-        bad = ~(torch.isfinite(mu_n) & torch.isfinite(mk.norm_inf(dx)))
+        mu_n = mk.inner(z_n, w_n, mask, nb) / m
+        bad = ~(torch.isfinite(mu_n)
+                & torch.isfinite(mk.norm_inf(dx, nb=nb)))
 
-        def sel(a, b):
-            return mk.tmap(lambda ai, bi: torch.where(bad, ai, bi), a, b)
-
-        return dataclasses.replace(
-            base, x=torch.where(bad, x, x_n), y=sel(y, y_n), z=sel(z, z_n),
-            w=sel(w, w_n), alpha=alpha,
+        stepped = dataclasses.replace(
+            base, x=mk.sel(bad, x, x_n), y=mk.sel(bad, y, y_n),
+            z=mk.sel(bad, z, z_n), w=mk.sel(bad, w, w_n), alpha=alpha,
             iter=base.iter + (~bad).to(torch.int64),
             result=torch.where(bad, DEGENERATE, base.result))
+        # a batch: the reference's lax.cond on take_step, per problem
+        return mk.sel(take_step, stepped, base) if nb else stepped
 
     def _step_eq_only(self, qp, state: IPState) -> IPState:
         """Newton step for a program without inequality constraints
@@ -312,33 +349,35 @@ class Mehrotra:
             result=torch.where(bad, DEGENERATE, OPTIMAL),
             test=mk.norm_inf(r1) + mk.norm_inf(r2, qp.eq_mask()))
 
-    def _adaptive_alpha(self, z, w, dz, dw, mask, m):
+    def _adaptive_alpha(self, z, w, dz, dw, mask, m, nb=0):
         """Mehrotra's adaptive stepsize heuristic (C:625-669); the groups
-        are flattened in field order, as ravel_pytree does."""
+        are flattened in field order, as ravel_pytree does (per problem
+        of a batch)."""
         gammaf = self.gammaf
-        zf, wf, dzf, dwf = mk.flat(z), mk.flat(w), mk.flat(dz), mk.flat(dw)
-        mf = mk.flat(mask)
+        zf, wf, dzf, dwf = (mk.flat(t, nb) for t in (z, w, dz, dw))
+        mf = mk.flat(mask, nb)
 
         okz = mf & (dzf < 0.0)
         ratz = torch.where(okz, -zf / torch.where(okz, dzf, -1.0), mk.BIG)
         okw = mf & (dwf < 0.0)
         ratw = torch.where(okw, -wf / torch.where(okw, dwf, -1.0), mk.BIG)
-        izmin = torch.argmin(ratz).reshape(1)      # first minimum
-        iwmin = torch.argmin(ratw).reshape(1)
-        zmin = ratz.gather(0, izmin)[0]
-        wmin = ratw.gather(0, iwmin)[0]
+        # first minimum, one per problem
+        izmin = torch.argmin(ratz, dim=-1, keepdim=True)
+        iwmin = torch.argmin(ratw, dim=-1, keepdim=True)
+        zmin = ratz.gather(-1, izmin)[..., 0]
+        wmin = ratw.gather(-1, iwmin)[..., 0]
 
         none_blocking = (zmin >= mk.BIG) & (wmin >= mk.BIG)
         alpha = torch.clamp(torch.minimum(zmin, wmin), max=1.0)
 
-        mu_pl = torch.where(mf, (zf + alpha * dzf) * (wf + alpha * dwf),
-                            0.0).sum() / m
+        a = mk.bc(alpha, zf)
+        mu_pl = mk.total((zf + a * dzf) * (wf + a * dwf), mf, nb) / m
 
         w_blocks = wmin <= zmin
-        ib = torch.where(w_blocks, iwmin, izmin)
+        ib = torch.where(mk.bc(w_blocks, iwmin), iwmin, izmin)
 
         def at(v):
-            return v.gather(0, ib)[0]
+            return v.gather(-1, ib)[..., 0]
 
         # at the blocking index the "other" variable's positivity decides
         a_other = torch.where(w_blocks, at(zf) + alpha * at(dzf),
@@ -377,8 +416,34 @@ class Mehrotra:
                     | (st.alpha < 1.0e-5))
                 fail = fail | failn
 
+    def _solve_loop_batch(self, qp, st: IPState, iter_cap: int):
+        """The loop of a batch, as ``jax.vmap`` of the reference's
+        ``while_loop`` runs it: while any problem is live (ITERATING and
+        below ``iter_cap``) every problem steps, and the others keep their
+        state.  One host read per iteration tests the loop."""
+        while True:
+            live = (st.result == ITERATING) & (st.iter < iter_cap)
+            if not host(live.any()):
+                return st
+            st = mk.sel(live, self.step(qp, st), st)
+
+    def solve_device(self, qp, state: IPState) -> IPState:
+        """Cold start plus the loop to termination (the reference's
+        ``solve_device``): the whole solve of one QP or, with leading
+        batch axes, of every QP of a batch, each frozen at its own
+        result."""
+        st = self.cold_start(qp, state)
+        if qp.nb:
+            return self._solve_loop_batch(qp, st, self.max_iters)
+        return self._solve_loop(qp, st, False, self.max_iters)[0]
+
     def solve(self, qp, state: IPState, hot: bool = False):
-        """Full solve with hot-start failure fallback (C:696-733)."""
+        """Full solve with hot-start failure fallback (C:696-733); a batch
+        of QPs takes :meth:`solve_device` and refuses a hot start."""
+        if qp.nb:
+            if hot:
+                self._unbatched(qp, "a hot start")
+            return self.solve_device(qp, state)
         fail_iters = 0
         if hot:
             st = self.hot_start(qp, state)
@@ -398,7 +463,7 @@ class Mehrotra:
 modules.register("sqp_qp_solver", "Mehrotra")(Mehrotra)
 
 
-def _unzero(t, mask):
+def _unzero(t, mask, nb=0):
     """If a direction is identically zero, nudge it (C:299-302)."""
-    n = mk.norm_inf(t, mask)
-    return mk.tmap(lambda a: torch.where(n == 0.0, 1.0e-10, a), t)
+    n = mk.norm_inf(t, mask, nb)
+    return mk.tmap(lambda a: torch.where(mk.bc(n == 0.0, a), 1.0e-10, a), t)

@@ -12,6 +12,12 @@ general sparse ``Hqp_Program`` (hqp/Hqp_Program.h:33-65):
 
 Both offer the protocol the interior point consumes: matvecs, one-sided
 inequality values as a dataclass of groups, masks and data norms.
+
+A StageQP may carry leading batch axes on every field (a scenario batch,
+``Q [B, K1, nv, nv]``, ...): the shape properties read trailing axes,
+``nb`` counts the batch axes, and the matvecs and data norm act per
+problem.  StageQP and IneqGroups are registered with torch's pytree
+utilities, so ``torch.func.vmap`` can return them.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils._pytree as pytree
 
 from hqp_tpu_torch.utils import masked as mk
 
@@ -71,15 +78,15 @@ class StageQP:
     # ---- static shape info -------------------------------------------------
     @property
     def K(self) -> int:
-        return self.A.shape[0]
+        return self.A.shape[-3]
 
     @property
     def nx(self) -> int:
-        return self.A.shape[1]
+        return self.A.shape[-2]
 
     @property
     def nv(self) -> int:
-        return self.A.shape[2]
+        return self.A.shape[-1]
 
     @property
     def nu(self) -> int:
@@ -87,11 +94,20 @@ class StageQP:
 
     @property
     def mc(self) -> int:
-        return self.C.shape[1]
+        return self.C.shape[-2]
 
     @property
     def meq(self) -> int:
-        return 0 if self.E is None else self.E.shape[1]
+        return 0 if self.E is None else self.E.shape[-2]
+
+    @property
+    def nb(self) -> int:
+        """Number of leading batch axes (0 for one problem)."""
+        return self.A.dim() - 3
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return self.A.shape[:-3]
 
     @property
     def device(self) -> torch.device:
@@ -99,7 +115,7 @@ class StageQP:
 
     def has_gen_eq(self) -> bool:
         """Static: does the program carry general stage equality rows?"""
-        return self.E is not None and self.E.shape[1] > 0
+        return self.E is not None and self.E.shape[-2] > 0
 
     # ---- masks -------------------------------------------------------------
     def fixed_mask(self) -> torch.Tensor:
@@ -132,25 +148,25 @@ class StageQP:
 
     def A_masked(self):
         """Dynamics Jacobian with absent-variable columns zeroed."""
-        return self.A * self.var_mask[:-1, None, :]
+        return self.A * self.var_mask[..., :-1, None, :]
 
     def xcoupling_mask(self):
         """Mask of the -I next-state coupling (x-part of stages 1..K)."""
-        return self.var_mask[1:, : self.nx]
+        return self.var_mask[..., 1:, : self.nx]
 
     # ---- linear algebra ----------------------------------------------------
     def matvec_Q(self, v):
-        return torch.einsum("kij,kj->ki", self.Q, v)
+        return torch.einsum("...kij,...kj->...ki", self.Q, v)
 
     def eval_eq(self, v):
         """Equality groups in 'Ax + b' form: dynamics, fixed variables and
         general stage rows."""
-        Av = torch.einsum("kij,kj->ki", self.A, v[:-1])
+        Av = torch.einsum("...kij,...kj->...ki", self.A, v[..., :-1, :])
         fix = self.fixed_mask()
-        out = {"dyn": Av - v[1:, : self.nx] + self.b,
+        out = {"dyn": Av - v[..., 1:, : self.nx] + self.b,
                "fix": torch.where(fix, v - self.fixed_val(), 0.0)}
         if self.has_gen_eq():
-            Ev = torch.einsum("kij,kj->ki", self.E, v)
+            Ev = torch.einsum("...kij,...kj->...ki", self.E, v)
             out["gen"] = torch.where(self.eqg_mask, Ev + self.e, 0.0)
         return out
 
@@ -158,16 +174,16 @@ class StageQP:
         """Adjoint of eval_eq's linear part into variable space [K1, nv]."""
         yd = y["dyn"]
         out = torch.zeros_like(self.c)
-        out[:-1] += torch.einsum("kij,ki->kj", self.A, yd)
-        out[1:, : self.nx] -= yd
+        out[..., :-1, :] += torch.einsum("...kij,...ki->...kj", self.A, yd)
+        out[..., 1:, : self.nx] -= yd
         out = out + torch.where(self.fixed_mask(), y["fix"], 0.0)
         if self.has_gen_eq():
             yg = torch.where(self.eqg_mask, y["gen"], 0.0)
-            out = out + torch.einsum("kij,ki->kj", self.E, yg)
+            out = out + torch.einsum("...kij,...ki->...kj", self.E, yg)
         return out
 
     def matvec_ineq(self, v) -> IneqGroups:
-        Cv = torch.einsum("kij,kj->ki", self.C, v)
+        Cv = torch.einsum("...kij,...kj->...ki", self.C, v)
         return IneqGroups(bl=v, bu=-v, gl=Cv, gu=-Cv)
 
     def matvec_ineqT(self, z: IneqGroups):
@@ -176,11 +192,11 @@ class StageQP:
         zbl = torch.where(m.bl, z.bl, 0.0)
         zbu = torch.where(m.bu, z.bu, 0.0)
         zg = torch.where(m.gl, z.gl, 0.0) - torch.where(m.gu, z.gu, 0.0)
-        return (zbl - zbu) + torch.einsum("kij,ki->kj", self.C, zg)
+        return (zbl - zbu) + torch.einsum("...kij,...ki->...kj", self.C, zg)
 
     def eval_ineq(self, v) -> IneqGroups:
         """One-sided constraint values 'Cv + d' per group (>= 0 feasible)."""
-        Cv = torch.einsum("kij,kj->ki", self.C, v)
+        Cv = torch.einsum("...kij,...kj->...ki", self.C, v)
         return IneqGroups(
             bl=v - _z(self.lb), bu=_z(self.ub) - v,
             gl=Cv - _z(self.d_lo), gu=_z(self.d_up) - Cv,
@@ -200,27 +216,32 @@ class StageQP:
 
     def norm_data(self):
         """max of the infinity norms of Q, A, C, c, b, d (masked); the
-        relative-termination scale of hqp/Hqp_IpsMehrotra.C:459-461."""
+        relative-termination scale of hqp/Hqp_IpsMehrotra.C:459-461; one
+        per problem of a batch."""
         im = self.ineq_mask()
-        terms = [self.Q.abs().amax()]
+        nb = self.nb
+        terms = [mk.amax_all(self.Q.abs(), nb)]
         if self.A.numel():
-            terms.append(self.A.abs().amax())
+            terms.append(mk.amax_all(self.A.abs(), nb))
         if self.C.numel():
-            terms.append(self.C.abs().amax())
+            terms.append(mk.amax_all(self.C.abs(), nb))
         terms += [
-            mk.norm_inf(self.c, self.var_mask),
-            mk.norm_inf(self.fixed_val(), self.fixed_mask()),
-            mk.norm_inf(_z(self.lb), im.bl),
-            mk.norm_inf(_z(self.ub), im.bu),
-            mk.norm_inf(_z(self.d_lo), im.gl),
-            mk.norm_inf(_z(self.d_up), im.gu),
+            mk.norm_inf(self.c, self.var_mask, nb),
+            mk.norm_inf(self.fixed_val(), self.fixed_mask(), nb),
+            mk.norm_inf(_z(self.lb), im.bl, nb),
+            mk.norm_inf(_z(self.ub), im.bu, nb),
+            mk.norm_inf(_z(self.d_lo), im.gl, nb),
+            mk.norm_inf(_z(self.d_up), im.gu, nb),
         ]
         if self.b.numel():
-            terms.append(mk.norm_inf(self.b))
+            terms.append(mk.norm_inf(self.b, nb=nb))
         if self.has_gen_eq():
-            terms.append((self.E * self.eqg_mask[:, :, None]).abs().amax())
-            terms.append(mk.norm_inf(self.e, self.eqg_mask))
-        return torch.clamp(torch.stack(terms).amax(), min=1e-10)
+            terms.append(mk.amax_all(
+                (self.E * self.eqg_mask[..., None]).abs(), nb))
+            terms.append(mk.norm_inf(self.e, self.eqg_mask, nb))
+        top = torch.stack(terms).amax() if nb == 0 else \
+            torch.stack(terms, dim=-1).amax(-1)
+        return torch.clamp(top, min=1e-10)
 
     def zero_x(self):
         return torch.zeros_like(self.c)
@@ -229,6 +250,27 @@ class StageQP:
 def _z(a):
     """Replace +-inf by 0 (masked-out offsets must stay finite)."""
     return torch.where(torch.isfinite(a), a, 0.0)
+
+
+def _register_pytree(cls):
+    """Register a dataclass of tensors (fields may be None) as a torch
+    pytree node: the present fields are its children."""
+    names = [fl.name for fl in dataclasses.fields(cls)]
+
+    def flatten(obj):
+        have = tuple(n for n in names if getattr(obj, n) is not None)
+        return [getattr(obj, n) for n in have], have
+
+    def unflatten(values, have):
+        return cls(**dict(zip(have, values)))
+
+    pytree.register_pytree_node(
+        cls, flatten, unflatten,
+        serialized_type_name=f"{cls.__module__}.{cls.__qualname__}")
+
+
+_register_pytree(IneqGroups)
+_register_pytree(StageQP)
 
 
 @dataclasses.dataclass
@@ -257,6 +299,9 @@ class DenseQP:
     d: torch.Tensor          # [mi]
     eq_mask_: torch.Tensor    # [me] bool
     ineq_mask_: torch.Tensor  # [mi] bool
+
+    #: a DenseQP is one problem: no batch axes
+    nb = 0
 
     @property
     def n(self) -> int:

@@ -731,3 +731,196 @@ def test_families_match_reference(name, n):
         np.testing.assert_allclose(info["obj"], float(js.f), rtol=1e-9,
                                    atol=1e-15)
         assert info["norm_inf"] < 1e-6
+
+
+# -- the scenario batch: presolve, batched KKT, draws (BASELINE config 5) ----------
+
+from hqp_tpu.parallel import scenarios as jscen  # noqa: E402
+from hqp_tpu.qp import presolve as jpre  # noqa: E402
+from hqp_tpu.qp.kkt_partitioned import PartitionedKKT as JPartKKT  # noqa
+
+import chip_smoke  # noqa: E402
+from hqp_tpu_torch.parallel import scenarios as tscen  # noqa: E402
+from hqp_tpu_torch.qp import presolve as tpre  # noqa: E402
+from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT  # noqa: E402
+from hqp_tpu_torch.qp.mehrotra import Mehrotra  # noqa: E402
+
+#: checksum of the port's 256 draws of config 5 (seed 0): the noise's sum
+#: and absolute sum and three of its entries; chip_smoke.py phase 17
+#: checks the card's draws against the same record
+SCEN_CHECKSUM = (-0.29271950609446296, 37.495359228680115,
+                 {(0, 0, 0): -0.002310411800234169,
+                  (100, 30, 1): 0.00040663832132356315,
+                  (255, 60, 2): 0.0012800506857305201})
+
+
+def _did60_jax(n_draws=None):
+    """The JAX package's DID-60, its iterate, Q = 1e-2 I and (with
+    ``n_draws``) the first draws of its config-5 batch."""
+    prg = JPrgDID(kmax=60)
+    v0 = prg.setup()
+    Q = jnp.tile(jnp.eye(prg.nv) * 1e-2, (prg.K + 1, 1, 1))
+    draws = None if n_draws is None else \
+        jscen.batched_qp(prg, v0, 256, scale=1e-3)[:n_draws]
+    return prg, v0, Q, draws
+
+
+def _stack(trees):
+    """JAX trees of one structure -> one tree of stacked numpy leaves."""
+    return jax.tree_util.tree_map(
+        lambda *a: np.stack([np.asarray(x) for x in a]), *trees)
+
+
+def _presolve_case(qp, case):
+    """The cases of tests/test_presolve.py:33-71 on a JAX StageQP: (QP,
+    tau)."""
+    if case == "parallel":     # the DID path row, tau-parallel to e_x1
+        return qp, 0.02
+    if case == "wide":         # an off-axis coefficient: the row stays
+        return dataclasses.replace(qp, C=qp.C.at[:, 0, 0].set(0.5)), 0.02
+    if case == "duplicate":    # an exact copy of the box row e_x1
+        return dataclasses.replace(
+            qp, C=jnp.zeros_like(qp.C).at[:, 0, 1].set(1.0)), 1e-12
+    # a negative-coefficient row with a lower bound on x0
+    return dataclasses.replace(
+        qp, C=jnp.zeros_like(qp.C).at[:, 0, 0].set(-1.0),
+        d_lo=jnp.full_like(qp.d_lo, -0.02),
+        d_up=jnp.full_like(qp.d_up, jnp.inf)), 1e-9
+
+
+@pytest.mark.parametrize("case", ["parallel", "wide", "duplicate",
+                                  "negative"])
+def test_presolve_matches_reference(case):
+    """merge_parallel_rows on the cases of tests/test_presolve.py, alone
+    and as a batch of three (the case at the iterate of DID-60 and at two
+    draws of config 5): bounds and rhs equal to the JAX package's exactly,
+    original_row_violation at a random x within 1e-15."""
+    prg, v0, Q, draws = _did60_jax(2)
+    jqps, taus = zip(*(_presolve_case(prg.make_qp(v, Q=Q)[1], case)
+                       for v in (v0, draws[0], draws[1])))
+    tau = taus[0]
+    rng = np.random.default_rng(7)
+    xs = rng.standard_normal((3,) + v0.shape)
+    jout = [jpre.merge_parallel_rows(q, tau) for q in jqps]
+    jviol = [float(jpre.original_row_violation(q, jnp.asarray(x)))
+             for q, x in zip(jqps, xs)]
+    tout = [tpre.merge_parallel_rows(convert.stage_qp(q, CPU), tau)
+            for q in jqps]
+    tb = convert.stage_qp(_stack(jqps), CPU)
+    assert tb.nb == 1 and tb.batch_shape == (3,)
+    tbo = tpre.merge_parallel_rows(tb, tau)
+    tviol = tpre.original_row_violation(tb, _t(xs))
+    assert tviol.shape == (3,)
+    for b in range(3):
+        for name in ("lb", "ub", "d_lo", "d_up"):
+            ref = np.asarray(getattr(jout[b], name))
+            np.testing.assert_array_equal(getattr(tout[b], name).numpy(),
+                                          ref)
+            np.testing.assert_array_equal(getattr(tbo, name)[b].numpy(),
+                                          ref)
+        one = tpre.original_row_violation(convert.stage_qp(jqps[b], CPU),
+                                          _t(xs[b]))
+        np.testing.assert_allclose(float(one), jviol[b], rtol=0, atol=1e-15)
+        np.testing.assert_allclose(float(tviol[b]), jviol[b], rtol=0,
+                                   atol=1e-15)
+    merged = np.isfinite(tbo.d_up.numpy()) & tbo.con_mask.numpy()
+    assert merged.any() == (case == "wide")
+
+
+def test_partitioned_kkt_batch_matches_unbatched():
+    """PartitionedKKT(L=20) factor+solve on a batch of three presolved
+    DID-60 QPs of config 5 (the JAX package's vmapped make_qp and presolve
+    at its draws 0, 22 and 144, converted as one batched StageQP), with
+    random barrier data and right-hand sides: each problem's solution
+    equal to the port's unbatched solve of it within 1e-12 and to the JAX
+    package's within 1e-10 (both refine to 1e-10).  The batched StageQP
+    equals the port's own make_qp_batch + presolve at the same iterates
+    within 1e-12."""
+    prg, v0, Q, draws = _did60_jax(145)
+    draws = draws[np.array([0, 22, 144])]
+    jqpb = jax.jit(jax.vmap(lambda v: jpre.merge_parallel_rows(
+        prg.make_qp(v, Q=Q)[1], 0.02)))(draws)
+    jqps = [jax.tree_util.tree_map(lambda a, b=b: a[b], jqpb)
+            for b in range(3)]
+    data = [(*random_zw(q, seed=b)[:2], *random_rhs(q, seed=10 + b))
+            for b, q in enumerate(jqps)]
+    mask = jqps[0].ineq_mask()
+
+    def port(qp, d):
+        z, w, r1, r2, r3, r4 = d
+        return (qp, convert.ineq(z, CPU), convert.ineq(w, CPU),
+                qp.ineq_mask(), _t(r1), convert.eq(r2, CPU),
+                convert.ineq(r3, CPU), convert.ineq(r4, CPU))
+
+    def solve(be, qp, z, w, m, *r):
+        return be.solve(be.factor(qp, z, w, m), qp, z, w, m, *r)
+
+    tqpb = convert.stage_qp(jqpb, CPU)
+    tprg = PrgDID(kmax=60, device=CPU)
+    tprg.setup()
+    _, own = tprg.make_qp_batch(_t(draws), _t(np.broadcast_to(
+        np.asarray(Q), (3,) + Q.shape)))
+    own = tpre.merge_parallel_rows(own, 0.02)
+    for name in ("Q", "c", "A", "b", "lb", "ub", "C", "d_lo", "d_up"):
+        np.testing.assert_allclose(getattr(own, name).numpy(),
+                                   getattr(tqpb, name).numpy(), rtol=1e-12,
+                                   atol=1e-12)
+    be = PartitionedKKT(L=20)
+    outb = solve(be, *port(tqpb, _stack(data)))
+    jfn = jax.jit(lambda q, z, w, *r: solve(JPartKKT(L=20), q, z, w, mask,
+                                             *r))
+    for b in range(3):
+        one = solve(be, *port(convert.stage_qp(jqps[b], CPU), data[b]))
+        ref = jfn(jqps[b], *data[b])
+        for tb_, t1, rj in zip(_sol_leaves(outb), _sol_leaves(one),
+                               _sol_leaves(ref)):
+            np.testing.assert_allclose(tb_[b].numpy(), t1.numpy(),
+                                       rtol=1e-12, atol=1e-12)
+            np.testing.assert_allclose(tb_[b].numpy(), np.asarray(rj),
+                                       rtol=1e-10, atol=1e-10)
+
+
+def _sol_leaves(sol):
+    """The leaves of a (dx, dy, dz, dw) solution of either package, in one
+    order: dx, dy by key, dz and dw by group."""
+    dx, dy, dz, dw = sol
+    return [dx, *(dy[k] for k in sorted(dy)),
+            *(getattr(dz, g) for g in _G), *(getattr(dw, g) for g in _G)]
+
+
+def test_batched_qp_draws_and_checksum():
+    """The port's draws of config 5 come from a CPU torch.Generator: the
+    same seed (or generator) gives the same draws, another seed others,
+    and the noise matches the checksum that chip_smoke.py phase 17 holds
+    the card's draws to."""
+    prg = PrgDID(kmax=60, device=CPU)
+    v0 = prg.setup()
+    a = tscen.batched_qp(prg, v0, 256, scale=1e-3, seed=0)
+    b = tscen.batched_qp(prg, v0, 256, scale=1e-3,
+                         generator=torch.Generator().manual_seed(0))
+    c = tscen.batched_qp(prg, v0, 256, scale=1e-3, seed=1)
+    assert a.shape == (256, 61, 3) and a.dtype == torch.float64
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    noise = a - v0
+    total, absum, entries = SCEN_CHECKSUM
+    np.testing.assert_allclose(float(noise.sum()), total, rtol=0,
+                               atol=1e-12 * absum)
+    np.testing.assert_allclose(float(noise.abs().sum()), absum, rtol=1e-12)
+    assert {k: float(noise[k]) for k in entries} == entries
+    assert chip_smoke.SCEN_CHECKSUM == SCEN_CHECKSUM
+    assert abs(float(noise.std()) - 1e-3) < 2e-5
+
+
+def test_batched_qp_refuses_hot_start():
+    """Hot starts stay unbatched: a batched QP given to hot_start, or to
+    solve(hot=True), raises NotImplementedError."""
+    prg = PrgDID(kmax=15, with_cns=False, device=CPU)
+    vb = tscen.batched_qp(prg, prg.setup(), 2, scale=1e-4)
+    _, qp = prg.make_qp_batch(vb)
+    slv = Mehrotra(backend=PartitionedKKT(L=5))
+    st = slv.init_state(qp)
+    assert st.iter.shape == (2,) and st.phimin.shape == (2, 51)
+    with pytest.raises(NotImplementedError):
+        slv.hot_start(qp, st)
+    with pytest.raises(NotImplementedError):
+        slv.solve(qp, st, hot=True)

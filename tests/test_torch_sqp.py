@@ -443,7 +443,8 @@ def test_port_imports_no_jax():
          "hqp_tpu_torch.models.omu_suite, hqp_tpu_torch.omu.program, "
          "hqp_tpu_torch.convert, hqp_tpu_torch.models.nlp_suite, "
          "hqp_tpu_torch.models.nlp_gen, hqp_tpu_torch.qp.franke, "
-         "hqp_tpu_torch.sqp.schittkowski, hqp_tpu_torch.prof_did1000; "
+         "hqp_tpu_torch.sqp.schittkowski, hqp_tpu_torch.prof_did1000, "
+         "hqp_tpu_torch.parallel.scenarios, hqp_tpu_torch.qp.presolve; "
          "assert 'jax' not in sys.modules, 'jax imported'"],
         check=True, env=env, cwd=root, timeout=120)
 
@@ -651,15 +652,181 @@ def test_registry_holds_the_exchangeable_modules():
     assert isinstance(s.qp, DenseQP) and isinstance(s._kkt_backend, DenseKKT)
 
 
-def reference_values():
+# -- the scenario batch (BASELINE config 5) ----------------------------------------
+
+from hqp_tpu.parallel import scenarios as jscen  # noqa: E402
+from hqp_tpu.qp import presolve as jpre  # noqa: E402
+from hqp_tpu.qp import mehrotra as jrs  # noqa: E402
+from hqp_tpu.qp.mehrotra import Mehrotra as JMehrotra  # noqa: E402
+
+from hqp_tpu_torch.parallel import scenarios as tscen  # noqa: E402
+
+#: BASELINE config 5 (bench.py:326-377): DID-60 at Q = 1e-2 I, 256 draws
+#: at scale 1e-3, the presolve's tau
+SCEN_N, SCEN_SCALE, SCEN_TAU = 256, 1e-3, 0.02
+#: draws of the JAX package's batch: 22 and 144 defeat every raw IP
+#: variant (tests/test_presolve.py:73-88), 144 keeps the largest
+#: original-row violation after the presolve
+JAX_DRAWS = (0, 1, 22, 144)
+#: the port's own draws in the CPU test: its fastest (19 IP iterations in
+#: the reference) and its slowest (25; chip_smoke.REF_SCEN)
+PORT_DRAWS = (22, 128)
+
+_JAX = {}
+
+
+def _jax_scen():
+    """The JAX package's DID-60 with its jitted make_qp, presolve and
+    violation, its 256 draws, and the solver of the reference rows: the
+    unbatched Mehrotra(PartitionedKKT(L=20, master="cr", gj="xla"),
+    eps=1e-9).  Built once per module, so every scenario test and
+    reference_values() share one compile of each."""
+    if not _JAX:
+        prg = JPrgDID(kmax=60)
+        v0 = prg.setup()
+        Q = jnp.tile(jnp.eye(prg.nv) * 1e-2, (prg.K + 1, 1, 1))
+        _JAX.update(
+            make=jax.jit(lambda v: prg.make_qp(v, Q=Q)[1]),
+            merge=jax.jit(jpre.merge_parallel_rows),
+            viol=jax.jit(jpre.original_row_violation),
+            slv=JMehrotra(backend=JPartitionedKKT(L=20, master="cr",
+                                                  gj="xla"), eps=1e-9),
+            draws=np.asarray(jscen.batched_qp(prg, v0, SCEN_N,
+                                              scale=SCEN_SCALE)))
+    return _JAX
+
+
+def jax_scenario_solves(draws, tau):
+    """The JAX package's unbatched solve of the DID-60 QP at each iterate
+    of ``draws`` (numpy [n, K1, nv]), presolved at ``tau`` (None: raw):
+    [(result code, IP iterations, x, original-row violation)]."""
+    J = _jax_scen()
+    out = []
+    for v in np.asarray(draws):
+        qp = J["make"](jnp.asarray(v))
+        qps = qp if tau is None else J["merge"](qp, tau)
+        st = J["slv"].solve(qps, J["slv"].init_state(qps))
+        out.append((int(st.result), int(st.iter), np.asarray(st.x),
+                    float(J["viol"](qp, st.x))))
+    return out
+
+
+def _port_draws():
+    """The port's own 256 draws (seed 0) on the CPU."""
+    prg = PrgDID(kmax=60, device=CPU)
+    return tscen.batched_qp(prg, prg.setup(), SCEN_N, scale=SCEN_SCALE,
+                            seed=0)
+
+
+def _port_scenarios(vb, tau):
+    """make_scenario_solve on the CPU over the DID-60 iterates vb with the
+    config's solver, Mehrotra(PartitionedKKT(L=20), eps=1e-9)."""
+    prg = PrgDID(kmax=60, device=CPU)
+    prg.setup()
+    Qb = (1e-2 * torch.eye(prg.nv, dtype=torch.float64)).expand(
+        vb.shape[0], prg.K + 1, prg.nv, prg.nv)
+    slv = Mehrotra(backend=PartitionedKKT(L=20), eps=1e-9)
+    return tscen.make_scenario_solve(prg, slv, presolve_tau=tau)(vb, Qb)
+
+
+def test_scenario_batch_presolved_matches_reference():
+    """BASELINE config 5's path on a batch of six: the JAX package's draws
+    0, 1, 22 and 144 and the port's own draws 0 and 1, presolved at tau =
+    0.02 and solved by make_scenario_solve in one batch.  Each scenario
+    ends at the JAX package's unbatched verdict and IP count (22, 22, 22
+    and 21 on the JAX draws, 19 and 25 on the port's), with x within
+    1e-10 and the original-row violation within 1e-12 (1.0693e-3 on draw
+    144, VERDICT.md:241-251)."""
+    J = _jax_scen()
+    vb = torch.cat([_c(J["draws"][list(JAX_DRAWS)]),
+                    _port_draws()[list(PORT_DRAWS)]])
+    st, viol = _port_scenarios(vb, SCEN_TAU)
+    ref = jax_scenario_solves(vb.numpy(), SCEN_TAU)
+    assert [r[:2] for r in ref] == [(0, 22), (0, 22), (0, 22), (0, 21),
+                                    (0, 19), (0, 25)]
+    assert st.iter.shape == st.result.shape == viol.shape == (6,)
+    for b, (res, it, x, v) in enumerate(ref):
+        assert (int(st.result[b]), int(st.iter[b])) == (res, it)
+        _close(st.x[b], x, 1e-10)
+        _close(viol[b], v, 1e-12, rtol=0.0)
+    assert abs(float(viol[3]) - 1.0693e-3) < 1e-7
+
+
+def test_scenario_batch_raw_mixed_results():
+    """Without the presolve, draws 0, 22 and 144 of the JAX package end
+    "optimal" at 26 and "suboptimal" (code 3) at 20 and at 31 IP
+    iterations in the reference (tests/test_presolve.py:73-88): in one
+    batch each scenario stops at its own verdict and count, with x within
+    1e-8 (the failed iterates blow up)."""
+    J = _jax_scen()
+    vb = _c(J["draws"][[0, 22, 144]])
+    st, viol = _port_scenarios(vb, None)
+    ref = jax_scenario_solves(vb.numpy(), None)
+    assert [r[:2] for r in ref] == [(0, 26), (3, 20), (3, 31)]
+    assert viol is None
+    for b, (res, it, x, _) in enumerate(ref):
+        assert (int(st.result[b]), int(st.iter[b])) == (res, it)
+        _close(st.x[b], x, 1e-8)
+
+
+def test_scenario_init_and_steps_match_reference():
+    """make_scenario_init and three make_scenario_step calls on a batch of
+    four perturbed PrgDID(kmax=15, with_cns=False) iterates (scale 1e-4;
+    tests/test_parallel.py:20-52 without the mesh) against the JAX
+    package's, vmapped and jitted, on the same draws: the state of every
+    scenario after each call within 1e-9, and the same iteration counts
+    and result codes."""
+    jprg = JPrgDID(kmax=15, with_cns=False)
+    tprg = PrgDID(kmax=15, with_cns=False, device=CPU)
+    tprg.setup()
+    vj = jscen.batched_qp(jprg, jprg.setup(), 4, scale=1e-4)
+    Qj = jnp.tile(jnp.eye(jprg.nv)[None, None] * 1e-2,
+                  (4, jprg.K + 1, 1, 1))
+    js = JMehrotra(backend=JPartitionedKKT(L=5))
+    ts = Mehrotra(backend=PartitionedKKT(L=5))
+    jinit = jax.jit(jscen.make_scenario_init(jprg, js))
+    jstep = jax.jit(jscen.make_scenario_step(jprg, js))
+    tinit = tscen.make_scenario_init(tprg, ts)
+    tstep = tscen.make_scenario_step(tprg, ts)
+    vt, Qt = _c(vj), _c(Qj)
+    jst, tst = jinit(vj, Qj), tinit(vt, Qt)
+    for k in range(4):
+        if k:
+            jst, tst = jstep(vj, Qj, jst), tstep(vt, Qt, tst)
+        assert tst.iter.tolist() == np.asarray(jst.iter).tolist() == [k] * 4
+        assert tst.result.tolist() == np.asarray(jst.result).tolist()
+        _close(tst.x, jst.x, 1e-9)
+        for g in _G:
+            _close(getattr(tst.z, g), getattr(jst.z, g), 1e-9)
+            _close(getattr(tst.w, g), getattr(jst.w, g), 1e-9)
+        for name in ("gap", "test", "alpha"):
+            _close(getattr(tst, name), getattr(jst, name), 1e-9)
+
+
+def reference_values(scenarios_only=False):
     """The JAX package's results that chip_smoke.py holds the card to
-    (REF_ALT, REF_CHAOTIC, REF_FAMILIES, REF_CATENA, REF_F_DID1000), one
-    JSON row each: [program, pairing or n, verdict, f, SQP, IP, then the
-    IP count by SQP iteration, qp_eps or norm_inf].  Run from the repository root on a CPU host:
-    ``JAX_PLATFORMS=cpu python -c "import jax;
+    (REF_SCEN, REF_ALT, REF_CHAOTIC, REF_FAMILIES, REF_CATENA,
+    REF_F_DID1000), one JSON row each: first REF_SCEN, the unbatched
+    solves of the port's own 256 draws of BASELINE config 5 (fed as
+    numpy, presolved at tau = 0.02) as ["scenarios256", IP count of each
+    draw, verdict tally, largest original-row violation]; then [program,
+    pairing or n, verdict, f, SQP, IP, then the IP count by SQP
+    iteration, qp_eps or norm_inf].  Run from the repository root on a
+    CPU host: ``JAX_PLATFORMS=cpu python -c "import jax;
     jax.config.update('jax_platforms', 'cpu'); import tests.test_torch_sqp
-    as t; t.reference_values()"``."""
+    as t; t.reference_values()"`` (``t.reference_values(scenarios_only=
+    True)`` for REF_SCEN alone, about 2 minutes)."""
     import json
+
+    ref = jax_scenario_solves(_port_draws().numpy(), SCEN_TAU)
+    tally = {}
+    for res, *_ in ref:
+        name = jrs.RESULT_STRINGS[res]
+        tally[name] = tally.get(name, 0) + 1
+    print(json.dumps(["scenarios256", [it for _, it, _, _ in ref], tally,
+                      max(v for *_, v in ref)]), flush=True)
+    if scenarios_only:
+        return
 
     from hqp_tpu.models.nlp_gen import solve_generated
     from hqp_tpu.sqp import powell
