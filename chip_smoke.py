@@ -61,11 +61,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and objective (REF_ALT; the objective of DID-1000 with Franke, which
      fails in both packages, within FAILED_F_RTOL); the two chaotic TP383
      failures as REF_CHAOTIC says;
- 16. the five generated families through solve_generated on the card
+ 16. the five generated families in solve_generated's configuration but
+     on the dense path, SqpPowell(..., kkt_backend=DenseKKT()), on the card
      (LQBlend at n = 2000, the others at n = 1000): optimal with
      norm_inf < 1e-6 at the JAX package's objective (REF_FAMILIES), but
      Catena, whose dense saddle matrix is singular, degenerate at its
-     first QP; wall ms per solve;
+     first QP; wall ms and host syncs per IP iteration per solve;
  17. the scenario batch (BASELINE config 5): PrgDID(kmax=60) and the
      port's 256 draws (seed 0, scale 1e-3, checked against the checksum
      the CPU tests record), presolved at tau = 0.02 and solved by
@@ -80,7 +81,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      batched IP iteration; then K1 and K2 on the batch's own inputs
      against their twins and timed as in phase 5, with their library
      yardsticks (torch.linalg.inv on [768, 98, 98]; a dense
-     torch.linalg.solve of the 256 assembled [8, 8] masters).
+     torch.linalg.solve of the 256 assembled [8, 8] masters);
+ 18. the host-sparse slice, every QP on the card and every KKT system
+     factored on the host: (a) the g++ build of the host library and its
+     seconds; (b) the five families through solve_generated
+     (SparseCallbackKKT) in the order of the reference's record, each at
+     the JAX package's verdict, objective and SQP and IP counts
+     (REF_FAMILIES), Catena at REF_CATENA's verdict and counts with its
+     objective over the first SQP iterations; (c) the seven files of
+     tests/sif through solve_sif (SparseHostKKT), each at REF_SIF's
+     verdict, counts and objective and at its published optimum; (d) TP383
+     through SparseHostKKT and FullSparseBKPKKT (with the BKP's pinned
+     pivots) and (e) SeparablePairs with SparseBFGS, each at REF_HOST; (f)
+     every QP tensor and iterate of (b)-(e) on the card; (g) a warm LQBlend
+     n = 2000 solve: wall ms, host factor and host solve ms, bytes each way
+     and host syncs per IP iteration, beside phase 16's DenseKKT solve.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -135,7 +150,7 @@ CRANEPAR_LARGE = 20
 #: the large K1 kernel's W and Schur against the twin's (relative): sums in
 #: another order; its Minv must equal the twin's to the last bit
 LARGE_WS_TOL = {torch.float64: 1e-14, torch.float32: 1e-6}
-#: the device of phases 13-17 (a CPU run of those phases alone rehearses
+#: the device of phases 13-18 (a CPU run of those phases alone rehearses
 #: them up to phase 17's kernel timings; main() needs the card)
 DEVICE = "cuda"
 #: the exchangeable modules in the JAX reference package on a CPU host in
@@ -187,17 +202,52 @@ REF_CHAOTIC = {
     "Gerschgorin": (("infeasible", 5.060834829680604e-12, 49, 369),
                     ("infeasible", 49)),
 }
-#: the JAX package's solve_generated (host sparse LDL') on a CPU host:
-#: (n, verdict, f, SQP, IP)
+#: the JAX package's solve_generated (host sparse LDL') on a CPU host, the
+#: families in sorted order in one process (host_sparse_reference_values()
+#: in tests/test_torch_sqp.py): (n, verdict, f, SQP, IP)
 REF_FAMILIES = {
     "lqblend": (2000, "optimal", -199.99707215036685, 2, 5),
     "broydn3d": (1000, "optimal", 1.6917715654089756e-14, 7, 7),
     "bdqrtic": (1000, "optimal", 3983.8179505765397, 9, 10),
     "srosenbr": (1000, "optimal", 1.4319427271097043e-16, 43, 95),
 }
-#: the same for Catena at n = 1000, which the reference does not solve
-REF_CATENA = ('SqpError("iters") at SQP 200 / IP 200, f = '
-              '-23952.442580435672, norm_inf 1211.0119187742637')
+#: the same for Catena at n = 1000, which the reference does not solve:
+#: (verdict, SQP, IP, f after the QP of each of the first six SQP
+#: iterations).  f is held over those alone: from the sixth on it parts
+#: exponentially, between the packages and between runs of the reference
+#: itself (ROADMAP Q3 R14)
+REF_CATENA = ("iters", 200, 200,
+              [-127.45117381283265, -128.11393358704416, -178.49838527166335,
+               -178.50080909611583, -178.98208915521062, -166.2620994959886])
+#: where two runs of the reference's Catena ended (f, norm_inf): the record
+#: of reference_values() and that of host_sparse_reference_values()
+REF_CATENA_ENDS = ((-23952.442580435672, 1211.0119187742637),
+                   (-139.31661153160823, 3.5119834463247625e-06))
+#: the JAX package's solve_sif on each file of tests/sif on a CPU host:
+#: (verdict, objective, SQP, IP)
+REF_SIF = {
+    "HS21": ("optimal", -99.95999999999994, 1, 8),
+    "HS27": ("optimal", 0.04000000000001431, 32, 33),
+    "HS35": ("optimal", 0.1111111111169125, 2, 7),
+    "HS6": ("optimal", 2.342559463410134e-15, 2, 2),
+    "HS7": ("optimal", -1.732050807570195, 10, 10),
+    "HS76": ("optimal", -4.6818181818181825, 2, 8),
+    "TAME": ("optimal", 0.0, 1, 2),
+}
+#: the published optima of those files (tests/test_sif.py:130-142)
+SIF_OPTIMA = {"HS21": -99.96, "HS27": 0.04, "HS35": 1.0 / 9.0, "HS6": 0.0,
+              "HS7": -1.7320508075, "HS76": -4.681818181, "TAME": 0.0}
+#: the JAX package on a CPU host (verdict, f, SQP, IP): TP383 through
+#: SqpPowell(max_iters=60, Mehrotra(eps=1e-9, max_iters=50)) with the host
+#: sparse LDL' (RedSpBKP_host) and with the sparse BKP (SpBKP), the flows
+#: of tests/test_sparse_host.py:40 and tests/test_bkp.py:147; and
+#: tests/test_sparse_bfgs.py:83's SeparablePairs with SparseBFGS
+REF_HOST = {
+    ("TP383", "RedSpBKP_host"): ("optimal", 728593.6459679932, 50, 536),
+    ("TP383", "SpBKP"): ("optimal", 728593.6459679933, 50, 536),
+    ("SeparablePairs", "SparseBFGS"): ("optimal", 3.5545436955784777e-12,
+                                       7, 7),
+}
 
 
 #: BASELINE config 5 (bench.py:326-377): scenarios, draw scale, seed,
@@ -615,7 +665,9 @@ def nlp_programs():
 
 
 def phases_13_to_16(smi):
-    """The phases of the general-NLP slice (see the module docstring)."""
+    """The phases of the general-NLP slice (see the module docstring);
+    returns phase 16's dense solves by family (wall ms, IP iterations,
+    host syncs an IP iteration)."""
     # -- 13. the KKT oracles on DID-1000 --------------------------------------
     links = oracle_links()
     dx_part = links["PartitionedKKT(L=10)"][2]
@@ -683,36 +735,50 @@ def phases_13_to_16(smi):
             check(c["gj"]["tile"] > 0 and c["thomas"] > 0,
                   f"{name}/{pair} skipped a kernel: {c}")
 
-    # -- 16. the generated families ----------------------------------------------
-    from hqp_tpu_torch.models.nlp_gen import solve_generated
+    # -- 16. the generated families on the dense path -----------------------------
+    from hqp_tpu_torch.models.nlp_gen import FAMILIES, FAMILY_HELA
+    from hqp_tpu_torch.qp.kkt import DenseKKT
+    from hqp_tpu_torch.qp.mehrotra import Mehrotra
+    from hqp_tpu_torch.sqp.powell import SqpPowell
     from hqp_tpu_torch.sqp.solver import SqpError
+    from hqp_tpu_torch.utils import sync
+    from hqp_tpu_torch.utils.registry import modules
+    dense = {}
     for name in ("lqblend", "broydn3d", "bdqrtic", "catena", "srosenbr"):
         n = 2000 if name == "lqblend" else 1000
         torch.cuda.synchronize()
+        sync.COUNT = 0
         t0 = time.perf_counter()
+        s = SqpPowell(FAMILIES[name](n=n, device=DEVICE), max_iters=200,
+                      eps=1e-6, qp_solver=Mehrotra(eps=1e-9, max_iters=60),
+                      kkt_backend=DenseKKT(),
+                      hela=modules.create("sqp_hela", FAMILY_HELA[name]))
+        s.init()
         try:
-            info = solve_generated(name, n=n, device=DEVICE)
+            res = s.solve()
         except SqpError as e:
-            info = {"result": e.reason}
+            res = e.reason
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         if name == "catena":
-            print(f"[16] catena n={n}: {info['result']}, {ms:.1f} ms wall "
-                  f"(n + 1 link equalities on n heights: the dense saddle "
-                  f"matrix is singular; reference solve_generated "
-                  f"{REF_CATENA}); on {smi}")
-            check(info["result"] == "degenerate", f"catena: {info}")
+            print(f"[16] catena n={n} DenseKKT: {res}, {ms:.1f} ms wall (n + 1"
+                  f" link equalities on n heights: the dense saddle matrix is "
+                  f"singular); on {smi}")
+            check(res == "degenerate", f"catena: {res}")
             continue
         rn, rres, rf, rit, rip = REF_FAMILIES[name]
-        f = info.get("obj", float("nan"))
-        print(f"[16] {name} n={n}: {info['result']}, f = {f!r} (reference "
-              f"{rf!r}), norm_inf {info.get('norm_inf')}, SQP/IP port "
-              f"{info.get('sqp_iters')} / {info.get('qp_iters_total')}, "
-              f"reference {rit} / {rip}, {ms:.1f} ms wall; on {smi}")
-        check(info["result"] == "optimal" and info["norm_inf"] < 1e-6,
-              f"{name}: {info}")
+        f = float(s.f)
+        print(f"[16] {name} n={n} DenseKKT: {res}, f = {f!r} (reference "
+              f"{rf!r}), norm_inf {s.norm_inf}, SQP/IP {s.iter} / "
+              f"{s.qp_iters_total} (the host-sparse reference {rit} / {rip}), "
+              f"{ms:.1f} ms wall, {sync.COUNT / max(s.qp_iters_total, 1):.2f}"
+              f" host syncs an IP iteration; on {smi}")
+        check(res == "optimal" and s.norm_inf < 1e-6, f"{name}: {res}")
         check(abs(f - rf) <= max(1e-6 * abs(rf), 1e-8),
               f"{name}: f = {f} vs reference {rf}")
+        dense[name] = dict(ms=ms, ip=s.qp_iters_total,
+                           syncs=sync.COUNT / max(s.qp_iters_total, 1))
+    return dense
 
 
 def time_thomas_batch(D, U, r):
@@ -894,6 +960,243 @@ def phase_17(smi):
           "[768, 98, 98] (Minv only); K2 one batched torch.linalg.solve of "
           "the 256 assembled [8, 8] masters")
     return rows
+
+
+def separable_pairs(device):
+    """tests/test_sparse_bfgs.py's partially separable NLP in the port:
+    f = sum_i (x_i^2 - x_{i+h})^2 + (x_i - 1)^2 over n = 8, h = n/2, whose
+    Hessian is 2x2-block diagonal after a reordering that RCM finds."""
+    from hqp_tpu_torch.docp.nlp import Nlp
+
+    class SeparablePairs(Nlp):
+        name = "SeparablePairs"
+        n = 8
+        m = 0
+
+        def setup_vars(self):
+            return dict(x_init=np.full(self.n, 0.5))
+
+        def f0(self, x):
+            h = self.n // 2
+            a, b = x[:h], x[h:]
+            return ((a ** 2 - b) ** 2 + (a - 1.0) ** 2).sum()
+
+    return SeparablePairs(device=device)
+
+
+class QPDevices:
+    """Records the device of every QP tensor that Mehrotra.solve is handed
+    and of the iterate it returns, while active (a context manager)."""
+
+    def __enter__(self):
+        from hqp_tpu_torch.qp.mehrotra import Mehrotra
+        self.devices = set()
+        self._solve = Mehrotra.solve
+        rec = self.devices
+
+        def solve(slv, qp, state, hot=False):
+            out = self._solve(slv, qp, state, hot)
+            rec.update(t.device.type for t in (qp.Q, qp.c, qp.A, qp.b, qp.C,
+                                               qp.d, out.x))
+            return out
+
+        Mehrotra.solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        from hqp_tpu_torch.qp.mehrotra import Mehrotra
+        Mehrotra.solve = self._solve
+
+
+def phase_18(smi, dense):
+    """The host-sparse slice on the card (see the module docstring);
+    ``dense`` holds phase 16's DenseKKT solves by family."""
+    import os
+
+    from hqp_tpu_torch import native
+    from hqp_tpu_torch.models import nlp_gen
+    from hqp_tpu_torch.models import nlp_suite
+    from hqp_tpu_torch.models.sif import solve_sif
+    from hqp_tpu_torch.ops import _build_host
+    from hqp_tpu_torch.prof_did1000 import LayerTimers
+    from hqp_tpu_torch.qp.kkt_sparse_host import (FullSparseBKPKKT,
+                                                  SparseCallbackKKT,
+                                                  SparseHostKKT)
+    from hqp_tpu_torch.qp.mehrotra import Mehrotra
+    from hqp_tpu_torch.sqp.hessian import SparseBFGS
+    from hqp_tpu_torch.sqp.powell import SqpPowell
+    from hqp_tpu_torch.sqp.solver import SqpError
+    from hqp_tpu_torch.utils import sync
+
+    # -- (a) build -------------------------------------------------------------
+    t0 = time.perf_counter()
+    native.library()
+    print(f"[18] host library built in {time.perf_counter() - t0:.1f} s "
+          f"(g++ {_build_host.INFO['seconds']:.1f} s, built="
+          f"{_build_host.INFO['built']}) -> {_build_host.INFO['path']}")
+
+    with QPDevices() as qd:
+        # -- (b) the families through solve_generated, in the order of the
+        # reference's record: the shared backend keeps its symbolic records
+        # per problem shape across calls, as the reference's does
+        for name in sorted([*REF_FAMILIES, "catena"]):
+            if name == "catena":
+                catena_drive(smi)
+                continue
+            n, rres, rf, rit, rip = REF_FAMILIES[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = nlp_gen.solve_generated(name, n=n, device=DEVICE)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            f = info["obj"]
+            print(f"[18] {name} n={n} RedSpBKP: {info['result']}, f = {f!r} "
+                  f"(reference {rf!r}), norm_inf {info['norm_inf']}, SQP/IP "
+                  f"{info['sqp_iters']} / {info['qp_iters_total']} (reference"
+                  f" {rit} / {rip}), {ms:.1f} ms wall; on {smi}")
+            check(info["result"] == rres and info["norm_inf"] < 1e-6,
+                  f"{name}: {info}")
+            check((info["sqp_iters"], info["qp_iters_total"]) == (rit, rip),
+                  f"{name}: SQP/IP {info['sqp_iters']} / "
+                  f"{info['qp_iters_total']} vs reference {rit} / {rip}")
+            check(abs(f - rf) <= max(1e-6 * abs(rf), 1e-8),
+                  f"{name}: f = {f} vs reference {rf}")
+
+        # -- (c) the SIF files through solve_sif ---------------------------------
+        here = os.path.dirname(os.path.abspath(__file__))
+        for name, (rres, rf, rit, rip) in REF_SIF.items():
+            t0 = time.perf_counter()
+            out = solve_sif(os.path.join(here, "tests", "sif", name + ".SIF"),
+                            device=DEVICE)
+            ms = (time.perf_counter() - t0) * 1e3
+            fstar = SIF_OPTIMA[name]
+            print(f"[18] SIF {name}: {out['result']}, obj = {out['obj']!r} "
+                  f"(reference {rf!r}, published {fstar!r}), SQP/IP "
+                  f"{out['sqp_iters']} / {out['qp_iters_total']} (reference "
+                  f"{rit} / {rip}), {ms:.1f} ms wall")
+            check((out["result"], out["sqp_iters"], out["qp_iters_total"])
+                  == (rres, rit, rip), f"SIF {name}: {out}")
+            check(abs(out["obj"] - rf) <= max(1e-8 * abs(rf), 1e-12),
+                  f"SIF {name}: obj {out['obj']} vs reference {rf}")
+            check(abs(out["obj"] - fstar) <= max(1e-4 * abs(fstar), 2e-5)
+                  and out["ok"], f"SIF {name}: obj {out['obj']} vs the "
+                  f"published optimum {fstar}")
+
+        # -- (d) TP383 by RedSpBKP_host and SpBKP; (e) SparseBFGS ----------------
+        for (prog, pair), ref in REF_HOST.items():
+            if pair == "SparseBFGS":
+                s = SqpPowell(separable_pairs(DEVICE), max_iters=60,
+                              hela=SparseBFGS())
+                be = None
+            else:
+                be = (SparseHostKKT if pair == "RedSpBKP_host"
+                      else FullSparseBKPKKT)()
+                s = SqpPowell(nlp_suite.PrgTP383(device=DEVICE), max_iters=60,
+                              qp_solver=Mehrotra(eps=1e-9, max_iters=50),
+                              kkt_backend=be)
+            t0 = time.perf_counter()
+            s.init()
+            try:
+                res = s.solve()
+            except SqpError as e:
+                res = e.reason
+            ms = (time.perf_counter() - t0) * 1e3
+            f = float(s.f)
+            extra = ""
+            if pair == "SpBKP":
+                extra = (f", pinned pivots {sum(be.pinned)} over "
+                         f"{len(be.pinned)} factorizations (most in one: "
+                         f"{max(be.pinned)})")
+            elif pair == "SparseBFGS":
+                extra = f", blocks {s.hela._blocks}"
+            print(f"[18] {prog} {pair}: {res}, f = {f!r} (reference "
+                  f"{ref[1]!r}), SQP/IP {s.iter} / {s.qp_iters_total} "
+                  f"(reference {ref[2]} / {ref[3]}), {ms:.1f} ms wall{extra}")
+            check((res, s.iter, s.qp_iters_total) == (ref[0], ref[2], ref[3]),
+                  f"{prog}/{pair}: {res} {s.iter}/{s.qp_iters_total} vs "
+                  f"reference {ref}")
+            check(abs(f - ref[1]) <= max(1e-9 * abs(ref[1]), 1e-15),
+                  f"{prog}/{pair}: f = {f} vs reference {ref[1]}")
+
+    # -- (f) every QP tensor of (b)-(e) on the card ----------------------------
+    print(f"[18] devices of the QP tensors and iterates of (b)-(e): "
+          f"{sorted(qd.devices)}")
+    check(qd.devices == {DEVICE}, f"a QP left the card: {qd.devices}")
+
+    # -- (g) where lqblend's time goes, beside the dense path's ---------------
+    n = REF_FAMILIES["lqblend"][0]
+    be = nlp_gen.generated_solver("lqblend", n=n, device=DEVICE)._kkt_backend
+    moved = dict(be.moved)
+    lt = LayerTimers(torch.device(DEVICE))
+    lt.wrap(SparseCallbackKKT, "_host_factor", "factor")
+    lt.wrap(SparseCallbackKKT, "_host_solve", "solve")
+    try:
+        torch.cuda.synchronize()
+        sync.COUNT = 0
+        t0 = time.perf_counter()
+        info = nlp_gen.solve_generated("lqblend", n=n, device=DEVICE)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        lt.restore()
+    ip = info["qp_iters_total"]
+    d2h = (be.moved["d2h"] - moved["d2h"]) / ip
+    h2d = (be.moved["h2d"] - moved["h2d"]) / ip
+    dn = dense["lqblend"]
+    print(f"[18] lqblend n={n} warm solve_generated (RedSpBKP): "
+          f"{info['result']}, {ms:.1f} ms wall, IP {ip}; an IP iteration: "
+          f"host factor {lt.excl['factor'] * 1e3 / ip:.2f} ms "
+          f"({lt.calls['factor']} factorizations in all), host solves "
+          f"{lt.excl['solve'] * 1e3 / ip:.2f} ms ({lt.calls['solve']} "
+          f"solves in all), {d2h:.0f} bytes to the host and {h2d:.0f} to "
+          f"the card, {sync.COUNT / ip:.2f} host syncs; the same solve by "
+          f"DenseKKT (phase 16): {dn['ms']:.1f} ms wall, IP {dn['ip']}, "
+          f"{dn['syncs']:.2f} host syncs an IP iteration; on {smi}")
+    check(info["result"] == "optimal", f"lqblend: {info}")
+
+
+def catena_drive(smi):
+    """Phase 18's catena: solve_generated's solver (generated_solver, init,
+    solve) held to REF_CATENA: the verdict, the SQP and IP counts, and f
+    over the first SQP iterations (ROADMAP Q3 R14: f parts exponentially
+    after them, between the packages and within the reference itself)."""
+    from hqp_tpu_torch.models import nlp_gen
+    from hqp_tpu_torch.sqp.solver import SqpError
+    res, it, ip, head = REF_CATENA
+    n = 1000
+    s = nlp_gen.generated_solver("catena", n=n, device=DEVICE)
+    fs = []
+    qp_solve = s.qp_solve
+
+    def traced():
+        qp_solve()
+        fs.append(float(s.f))
+
+    s.qp_solve = traced
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.init()
+    try:
+        got = s.solve()
+    except SqpError as e:
+        got = e.reason
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    be = s._kkt_backend
+    floored = be._live[be._token]["ldl"].n_floored
+    rel = [abs(a - b) / abs(b) for a, b in zip(fs, head)]
+    print(f"[18] catena n={n} RedSpBKP: {got} at SQP {s.iter} / IP "
+          f"{s.qp_iters_total} (reference {res} at {it} / {ip}), f = "
+          f"{float(s.f)!r}, norm_inf {s.norm_inf} (chaotic: reference runs "
+          f"end at {REF_CATENA_ENDS}); f over the first {len(head)} SQP "
+          f"iterations {fs[:len(head)]}, largest rel difference "
+          f"{max(rel):.2e}; LDL' pivots floored in the last factorization "
+          f"{floored}; {ms:.1f} ms wall; on {smi}")
+    check((got, s.iter, s.qp_iters_total) == (res, it, ip),
+          f"catena: {got} {s.iter}/{s.qp_iters_total} vs {REF_CATENA[:3]}")
+    check(len(fs) >= len(head) and max(rel) <= 1e-6,
+          f"catena: f over the first SQP iterations {fs[:len(head)]} vs "
+          f"{head}")
 
 
 def main():
@@ -1142,10 +1445,13 @@ def main():
                   f"launches, not {CRANEPAR_LARGE}: {c}")
             launches["gj_large"] = c["gj"]["large"]
 
-    phases_13_to_16(smi)
+    dense = phases_13_to_16(smi)
 
     # -- 17. the scenario batch --------------------------------------------------
     batch = phase_17(smi)
+
+    # -- 18. the host-sparse slice ------------------------------------------------
+    phase_18(smi, dense)
 
     def row(key, name, replaces):
         t = times[key]

@@ -9,17 +9,23 @@ has an obvious counterpart in the JAX reference package:
              kernel for tiles that fit a block, a global-memory kernel up
              to s = 512) and ``thomas_cuda`` (batched block-Thomas master
              solve); ``_build`` compiles ``csrc/*.cu`` with nvcc at first
-             CUDA use
+             CUDA use, ``_build_host`` the host library
+             ``csrc/host/sparse_ldl.cpp`` with g++ at first use
+  native     ctypes binding of that host library: ``rcm_order``,
+             ``SparseLDL``, ``SparseBKP``
   qp/        ``StageQP`` and ``DenseQP`` IRs (a StageQP may carry leading
              batch axes), the KKT backends (``PartitionedKKT``, which
              also takes a batch; the oracles ``RiccatiKKT``,
-             ``FullStageKKT``; ``DenseKKT`` for the general path), the
+             ``FullStageKKT``; ``DenseKKT`` for the general path and the
+             host-sparse ``SparseCallbackKKT``, ``SparseHostKKT`` and
+             ``FullSparseBKPKKT``, registered as RedSpBKP, RedSpBKP_host
+             and SpBKP), the
              ``Mehrotra`` and ``Franke`` interior points, and
              ``presolve`` (``merge_parallel_rows``,
              ``original_row_violation``)
   sqp/       ``SqpSolver``, ``SqpPowell``, ``SqpSchittkowski`` and the
              Hessian strategies (``BFGS``, ``DScale``, ``Gerschgorin``,
-             ``AugBFGS``, ``Gangster``)
+             ``AugBFGS``, ``Gangster``, ``SparseBFGS``)
   docp/      stage-wise ``Docp`` programs and general ``Nlp`` programs,
              with ``torch.func`` derivatives
   omu/       the Omuses front end: ``OmuProgram`` (continuous-time
@@ -33,7 +39,8 @@ has an obvious counterpart in the JAX reference package:
              HS99omu and CranePar; the NLP suite (``nlp_suite``:
              TP383, Maratos, HS99) and the generated families
              (``nlp_gen``: LQBlend, Broydn3d, Bdqrtic, Catena, SRosenbr,
-             and ``solve_generated``)
+             and ``solve_generated``); the SIF reader (``sif``:
+             ``PrgSIF``, registered as SIF and CUTE, and ``solve_sif``)
   parallel/  ``scenarios``: whole QP solves over a leading scenario axis
              (``batched_qp``, ``make_scenario_init``,
              ``make_scenario_step``, ``make_scenario_solve``; BASELINE
@@ -67,6 +74,10 @@ from hqp_tpu_torch.qp.program import DenseQP, StageQP  # noqa: E402
 from hqp_tpu_torch.qp.mehrotra import Mehrotra  # noqa: E402
 from hqp_tpu_torch.sqp.solver import SqpSolver, solve  # noqa: E402
 from hqp_tpu_torch.docp.program import Docp  # noqa: E402
+from hqp_tpu_torch.qp.kkt_sparse_host import (  # noqa: E402
+    FullSparseBKPKKT, SparseCallbackKKT, SparseHostKKT)
+from hqp_tpu_torch.models.sif import PrgSIF, solve_sif  # noqa: E402
 
 __all__ = ["modules", "StageQP", "DenseQP", "Mehrotra", "SqpSolver",
-           "solve", "Docp"]
+           "solve", "Docp", "SparseCallbackKKT", "SparseHostKKT",
+           "FullSparseBKPKKT", "PrgSIF", "solve_sif"]

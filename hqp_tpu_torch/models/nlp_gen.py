@@ -171,21 +171,32 @@ FAMILY_HELA = {
 }
 
 
+#: the Mehrotra / SparseCallbackKKT pair that every solve_generated call
+#: shares, as the reference's does (hqp_tpu/models/nlp_gen.py:218-229): the
+#: backend keeps its symbolic records per problem shape across calls
+_SHARED = {}
+
+
 def generated_solver(name: str, n: int = 1000, eps: float = 1e-6,
                      max_iters: int = 200, hela: str | None = None,
                      device="cuda"):
-    """The solver ``solve_generated`` runs: SqpPowell + Mehrotra(eps=1e-9,
-    max_iters=60) + :class:`~hqp_tpu_torch.qp.kkt.DenseKKT` on one family
-    instance on ``device``; ``hela = None`` picks the family default
-    (FAMILY_HELA)."""
-    from hqp_tpu_torch.qp.kkt import DenseKKT
+    """The solver ``solve_generated`` runs on one family instance on
+    ``device``: SqpPowell + Mehrotra(eps=1e-9, max_iters=60) +
+    :class:`~hqp_tpu_torch.qp.kkt_sparse_host.SparseCallbackKKT`, the
+    pair shared across calls; ``hela = None`` picks the family default
+    (FAMILY_HELA).  (The dense path stays reachable through
+    ``SqpPowell(..., kkt_backend=DenseKKT())``.)"""
+    from hqp_tpu_torch.qp.kkt_sparse_host import SparseCallbackKKT
     from hqp_tpu_torch.qp.mehrotra import Mehrotra
     from hqp_tpu_torch.sqp import hessian  # noqa: F401  (hela slots)
     from hqp_tpu_torch.sqp.powell import SqpPowell
 
+    if "pair" not in _SHARED:
+        _SHARED["pair"] = (Mehrotra(eps=1e-9, max_iters=60),
+                           SparseCallbackKKT())
+    qp_solver, backend = _SHARED["pair"]
     return SqpPowell(FAMILIES[name](n=n, device=device), max_iters=max_iters,
-                     eps=eps, qp_solver=Mehrotra(eps=1e-9, max_iters=60),
-                     kkt_backend=DenseKKT(),
+                     eps=eps, qp_solver=qp_solver, kkt_backend=backend,
                      hela=modules.create("sqp_hela",
                                          hela or FAMILY_HELA[name]))
 
@@ -196,13 +207,11 @@ def solve_generated(name: str, n: int = 1000, eps: float = 1e-6,
     """Solve one generated family instance by :func:`generated_solver`
     (init, solve) and return a summary dict.
 
-    The reference's ``solve_generated`` factors through the host sparse
-    LDL' of its native library (``SparseCallbackKKT``); until that backend
-    is ported (ROADMAP Q1, the host-sparse slice) the port factors the
-    same saddle system densely on the card, so its iteration counts may
-    differ from the reference's while its optimum agrees.  Catena's n + 1
-    link equalities on n heights make that dense matrix singular: it ends
-    in SqpError("degenerate") at the first QP (ROADMAP Q3 R12)."""
+    The KKT systems are factored on the host by the sparse LDL', as in the
+    reference's ``solve_generated``, whose SQP and IP counts the port
+    reproduces.  Catena's n + 1 link equalities on n heights make its
+    saddle matrix singular; the LDL' floors the zero pivots at ``reg``
+    (ROADMAP Q3 R12)."""
     s = generated_solver(name, n, eps, max_iters, hela, device)
     prg = s.prg
     s.init()

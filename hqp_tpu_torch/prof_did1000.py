@@ -22,9 +22,11 @@ Phases, each printed on lines of its own:
 ``--program Crane`` runs phases 2 and 3 on ``PrgCrane(K=kmax)`` (default
 QP tolerance; phases 1 and 4 are DID's).  ``--program LQBlend`` runs them
 on ``solve_generated``'s solver for ``PrgLQBlend(n=kmax)`` (the general
-path: Nlp, DenseKKT, the Gerschgorin hela), with the dense layers split
-out: the saddle assembly and LU, the LU solves, the exact Hessian, the
-hela update and eigvalsh.  ``--program Scenarios256`` runs them on one
+path: Nlp, the host-sparse SparseCallbackKKT, the Gerschgorin hela), with
+its layers split out: the copies of Q, C and A to the host, the host's
+saddle assembly and LDL' factorization, the host LDL' solves, the
+right-hand side and solution copies, the exact Hessian and the hela
+update.  ``--program Scenarios256`` runs them on one
 batched solve of BASELINE config 5 (``kmax`` scenarios of DID-60, the
 port's draws of seed 0, presolved at tau = 0.02, Mehrotra(PartitionedKKT(
 L=20), eps=1e-9) through ``make_scenario_solve``), with the batched
@@ -53,6 +55,7 @@ from hqp_tpu_torch.models.did import PrgDID
 from hqp_tpu_torch.models.nlp_gen import generated_solver
 from hqp_tpu_torch.parallel import scenarios
 from hqp_tpu_torch.qp import kkt as K_
+from hqp_tpu_torch.qp import kkt_sparse_host as sparse_host
 from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
 from hqp_tpu_torch.qp.mehrotra import Mehrotra
 from hqp_tpu_torch.sqp import hessian
@@ -201,11 +204,14 @@ def layer_split(kmax, device, program):
         lt.wrap(Nlp, "update_fbd_qp", "update_fbd_qp")
         lt.wrap(Nlp, "eval_hess_blocks", "exact Hessian (torch.func)")
         lt.wrap(hessian.Gerschgorin, "update", "hela update (excl. Hessian)")
-        lt.wrap(torch.linalg, "eigvalsh", "eigvalsh")
-        lt.wrap(K_.DenseKKT, "factor", "dense H build")
-        lt.wrap(K_, "_saddle_factor", "saddle assembly + LU")
-        lt.wrap(K_.DenseKKT, "solve", "KKT solve (excl. LU solves)")
-        lt.wrap(K_, "_saddle_solve", "LU solves")
+        be = sparse_host.SparseCallbackKKT
+        lt.wrap(sparse_host._HostKKT, "prepare", "Q, C, A to the host")
+        lt.wrap(be, "factor", "KKT factor (barrier data to the host)")
+        lt.wrap(be, "_host_factor", "host saddle assembly + LDL' factor")
+        lt.wrap(be, "solve", "KKT solve (device: reduce, recover, refine)")
+        lt.wrap(sparse_host._HostKKT, "_solve_host",
+                "rhs to the host, solution to the device")
+        lt.wrap(be, "_host_solve", "host LDL' solves")
     elif program == "Scenarios256":
         lt.wrap(Docp, "make_qp_batch", "make_qp (batched, torch.func.vmap)")
         lt.wrap(scenarios, "merge_parallel_rows", "presolve")

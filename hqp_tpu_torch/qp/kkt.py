@@ -23,9 +23,9 @@ The reference's ``lax.scan`` recursions run as Python loops over the
 stages, and its ``.at[].set`` scatters as ``index_put_``.  The dense LU
 runs in float64 on the QP's device (``torch.linalg.lu_factor_ex``); the
 reference's f32 LU exists for the TPU alone and is not ported.
-``qp_mat_solver RedSpBKP`` is not registered: in the reference package it
-resolves to the host sparse backend (``kkt_sparse_host.py``), which the
-port does not have yet.
+``qp_mat_solver RedSpBKP`` names the host sparse backend
+(:mod:`hqp_tpu_torch.qp.kkt_sparse_host`), as it does in the reference
+package once ``all_modules`` is imported.
 """
 
 from __future__ import annotations

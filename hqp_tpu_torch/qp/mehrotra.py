@@ -444,6 +444,10 @@ class Mehrotra:
             if hot:
                 self._unbatched(qp, "a hot start")
             return self.solve_device(qp, state)
+        if hasattr(self.backend, "prepare"):
+            # the host-sparse backends copy the loop-invariant Q, C and A
+            # to the host once per solve (hqp_tpu/qp/mehrotra.py:582-587)
+            self.backend.prepare(qp)
         fail_iters = 0
         if hot:
             st = self.hot_start(qp, state)

@@ -4,11 +4,11 @@ Port of ``hqp_tpu/sqp/hessian.py`` (reference: hqp/Hqp_HL.{h,C},
 Hqp_HL_BFGS.C, Hqp_HL_DScale.C, Hqp_HL_Gerschgorin.C, Hqp_HL_AugBFGS.C,
 Hqp_HL_Gangster.C): the base ``HL`` with its scale modes and least-squares
 multiplier start, the damped block BFGS, the diagonal ``DScale``, the
-exact-Hessian ``Gerschgorin``, ``AugBFGS`` and ``Gangster``.  The Hessian
-is a batch of dense diagonal blocks ``[B, nb, nb]`` (for a DOCP B = K+1
-stages, nb = nx+nu; for an NLP one block), and every block update runs
-batched over B.  ``SparseBFGS`` waits for the host-sparse slice (it needs
-the native RCM ordering).
+exact-Hessian ``Gerschgorin``, ``AugBFGS``, ``Gangster`` and the
+partitioned ``SparseBFGS`` (Hqp_HL_SparseBFGS.C).  The Hessian is a batch
+of dense diagonal blocks ``[B, nb, nb]`` (for a DOCP B = K+1 stages,
+nb = nx+nu; for an NLP one block), and every block update runs batched
+over B.
 """
 
 from __future__ import annotations
@@ -158,6 +158,88 @@ class Gerschgorin(HL):
             return gerschgorin_posdef(Qb, self.eps)
         return gerschgorin_posdef(self._prg.eval_hess_blocks(*self._xyz),
                                   self.eps)
+
+
+@modules.register("sqp_hela", "SparseBFGS")
+class SparseBFGS(BFGS):
+    """Partitioned BFGS over sparsity-discovered diagonal blocks
+    (Hqp_HL_SparseBFGS.C): RCM-permute the Hessian's sparsity pattern
+    (:70-113, sp_symrcm), split the permuted pattern into its connected
+    contiguous diagonal blocks (next_block, :255-276) and run the damped
+    BFGS update on each block alone (:216-247); entries outside the blocks
+    keep their values.
+
+    Stage layouts ``[B, nb, nb]`` arrive partitioned already and take the
+    batched BFGS.  For an NLP's one block the partition is discovered once
+    on the host: from the program's exact Lagrangian Hessian at the first
+    :meth:`bind`, else from the numeric pattern of the first Q updated."""
+
+    def __init__(self, pattern_eps: float = 0.0, **kw):
+        super().__init__(**kw)
+        #: entries with |Q_ij| <= pattern_eps count as structural zeros
+        self.pattern_eps = pattern_eps
+        self._perm = None
+        self._inv = None
+        self._blocks = None
+
+    def bind(self, prg, x, y, z):
+        """Discover the partition from the exact Lagrangian Hessian of a
+        program that has one (the reference reads the pattern of the
+        program's sparse Q, Hqp_HL_SparseBFGS.C:75-78)."""
+        if self._perm is None and hasattr(prg, "eval_hess_blocks"):
+            Hb = prg.eval_hess_blocks(x, y, z)
+            if Hb.shape[0] == 1:
+                self._discover(Hb[0])
+
+    def _discover(self, Q):
+        """RCM order and contiguous-block scan of Q's symmetric pattern."""
+        import numpy as np
+        import scipy.sparse as sp
+
+        from hqp_tpu_torch.native import rcm_order
+        from hqp_tpu_torch.utils.sync import to_host
+
+        n = Q.shape[0]
+        A = np.abs(to_host(Q)) > self.pattern_eps
+        A = A | A.T
+        np.fill_diagonal(A, True)
+        pat = sp.csr_matrix(A.astype(np.float64))
+        pat.sort_indices()
+        perm = np.asarray(rcm_order(n, pat.indptr, pat.indices))
+        P = pat[perm][:, perm].tocsr()
+        P.sort_indices()
+        blocks = []
+        b = 0
+        while b < n:
+            offs = end = b
+            while b <= end:
+                row = P.indices[P.indptr[b]:P.indptr[b + 1]]
+                if len(row):
+                    end = max(end, int(row.max()))
+                b += 1
+            blocks.append((offs, end - offs + 1))
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(n)
+        dev = Q.device
+        self._perm = torch.as_tensor(perm, dtype=torch.int64, device=dev)
+        self._inv = torch.as_tensor(inv, dtype=torch.int64, device=dev)
+        self._blocks = blocks
+
+    def update(self, Qb, s_b, u_b, alpha):
+        if Qb.shape[0] != 1:
+            return super().update(Qb, s_b, u_b, alpha)
+        Q = Qb[0]
+        if self._perm is None or len(self._perm) != Q.shape[0]:
+            self._discover(Q)
+        perm, inv = self._perm, self._inv
+        Qp = Q[perm][:, perm]
+        sp_, up_ = s_b[0][perm], u_b[0][perm]
+        out = Qp.clone()
+        for offs, size in self._blocks:
+            sl = slice(offs, offs + size)
+            out[sl, sl] = super().update(Qp[sl, sl][None], sp_[sl][None],
+                                         up_[sl][None], alpha)[0]
+        return out[inv][:, inv][None]
 
 
 @modules.register("sqp_hela", "AugBFGS")

@@ -704,10 +704,11 @@ def test_nlp_program_matches_reference(name):
 def test_families_match_reference(name, n):
     """Each generated family at small n through solve_generated's
     configuration (Powell, FAMILY_HELA, Mehrotra(1e-9, 60)) with DenseKKT
-    in both packages: the same verdict, SQP and IP iterations, f within
-    1e-9 relative.  Catena has n + 1 link equalities on n heights, so its
-    dense saddle matrix is singular: both packages end "degenerate" at
-    the first QP (ROADMAP Q3 R12)."""
+    in both packages, the dense path that stays reachable through
+    ``kkt_backend=DenseKKT()``: the same verdict, SQP and IP iterations, f
+    within 1e-9 relative.  Catena has n + 1 link equalities on n heights,
+    so its dense saddle matrix is singular: both packages end
+    "degenerate" at the first QP (ROADMAP Q3 R12)."""
     from hqp_tpu.utils.registry import modules as jmodules
     import hqp_tpu.sqp.hessian  # noqa: F401
     js = JSqpPowell(JG.FAMILIES[name](n=n), max_iters=200, eps=1e-6,
@@ -719,18 +720,21 @@ def test_families_match_reference(name, n):
         jres = js.solve()
     except JSqpError as e:
         jres = e.reason
+    ts = SqpPowell(TG.FAMILIES[name](n=n, device=CPU), max_iters=200,
+                   eps=1e-6, qp_solver=Mehrotra(eps=1e-9, max_iters=60),
+                   kkt_backend=tkkt.DenseKKT(),
+                   hela=modules.create("sqp_hela", TG.FAMILY_HELA[name]))
+    ts.init()
     try:
-        info = TG.solve_generated(name, n=n, device=CPU)
-        tres = info["result"]
+        tres = ts.solve()
     except SqpError as e:
-        info, tres = None, e.reason
+        tres = e.reason
     assert tres == jres == ("degenerate" if name == "catena" else "optimal")
-    if info is not None:
-        assert (info["sqp_iters"], info["qp_iters_total"]) == \
-            (js.iter, js.qp_iters_total)
-        np.testing.assert_allclose(info["obj"], float(js.f), rtol=1e-9,
+    if tres == "optimal":
+        assert (ts.iter, ts.qp_iters_total) == (js.iter, js.qp_iters_total)
+        np.testing.assert_allclose(float(ts.f), float(js.f), rtol=1e-9,
                                    atol=1e-15)
-        assert info["norm_inf"] < 1e-6
+        assert ts.norm_inf < 1e-6
 
 
 # -- the scenario batch: presolve, batched KKT, draws (BASELINE config 5) ----------
@@ -924,3 +928,180 @@ def test_batched_qp_refuses_hot_start():
         slv.hot_start(qp, st)
     with pytest.raises(NotImplementedError):
         slv.solve(qp, st, hot=True)
+
+
+# -- the host-sparse slice: native kernels, KKT backends, SparseBFGS --------------
+
+import scipy.sparse as sp  # noqa: E402
+from hqp_tpu import native as jnative  # noqa: E402
+from hqp_tpu.qp import kkt_sparse_host as jsh  # noqa: E402
+from tests.test_native import random_quasidefinite  # noqa: E402
+from tests.test_sparse_bfgs import SeparablePairs as JSeparablePairs  # noqa
+
+from hqp_tpu_torch import native as tnative  # noqa: E402
+from hqp_tpu_torch.qp import kkt_sparse_host as tsh  # noqa: E402
+
+
+def _ring(n=200, seed=2):
+    """tests/test_native.py's shuffled ring graph (with its diagonal)."""
+    perm = np.random.default_rng(seed).permutation(n)
+    rows, cols = [], []
+    for i in range(n):
+        j = (i + 1) % n
+        rows += [perm[i], perm[j], perm[i]]
+        cols += [perm[j], perm[i], perm[i]]
+    K = sp.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
+    K.sort_indices()
+    return K
+
+
+SPARSE_PATTERNS = {"qd50": lambda: random_quasidefinite(50, 20),
+                   "qd300": lambda: random_quasidefinite(300, 100),
+                   "ring": _ring}
+
+
+@pytest.mark.parametrize("name", sorted(SPARSE_PATTERNS))
+def test_rcm_order_matches_reference(name):
+    """The port's build of the RCM ordering gives the reference's
+    permutation on tests/test_native.py's patterns."""
+    K = SPARSE_PATTERNS[name]()
+    N = K.shape[0]
+    np.testing.assert_array_equal(
+        tnative.rcm_order(N, K.indptr, K.indices),
+        jnative.rcm_order(N, K.indptr, K.indices))
+
+
+@pytest.mark.parametrize("kind", ["LDL", "BKP"])
+@pytest.mark.parametrize("name", ["qd50", "qd300"])
+def test_sparse_factors_match_reference(kind, name):
+    """SparseLDL and SparseBKP on the quasidefinite matrices of
+    tests/test_native.py: the same solves (one and three right-hand
+    sides) within 1e-12 relative, the same factor nnz, the same count of
+    2x2 pivots; nothing floored or pinned."""
+    K = SPARSE_PATTERNS[name]()
+    N = K.shape[0]
+    b = np.random.default_rng(1).standard_normal((N, 3))
+    if kind == "LDL":
+        jf = jnative.SparseLDL(N, K.indptr, K.indices).factor(K.data)
+        tf = tnative.SparseLDL(N, K.indptr, K.indices).factor(K.data)
+        assert tf.n_floored == 0
+    else:
+        jf = jnative.SparseBKP(N, K.indptr, K.indices, K.data)
+        tf = tnative.SparseBKP(N, K.indptr, K.indices, K.data)
+        assert tf.n_2x2 == jf.n_2x2 and tf.n_pinned == 0
+    assert tf.nnz == jf.nnz
+    for rhs in (b[:, 0], b):
+        _rel(tf.solve(rhs), jf.solve(rhs), 1e-12)
+
+
+def test_bkp_rank_one_pins_one_pivot():
+    """[[1, 1], [1, 1]]: the BKP pins its zero second pivot to 1.0 in both
+    packages (the same answer); the port reports that one pinned pivot,
+    and the LDL' at reg = 1e-8 its one floored pivot."""
+    K = sp.csr_matrix(np.array([[1.0, 1.0], [1.0, 1.0]]))
+    b = np.array([1.0, 0.0])
+    jf = jnative.SparseBKP(2, K.indptr, K.indices, K.data)
+    tf = tnative.SparseBKP(2, K.indptr, K.indices, K.data)
+    np.testing.assert_array_equal(tf.solve(b), jf.solve(b))
+    assert (tf.n_pinned, tf.n_2x2) == (1, 0)
+    tl = tnative.SparseLDL(2, K.indptr, K.indices).factor(K.data, reg=1e-8)
+    jl = jnative.SparseLDL(2, K.indptr, K.indices).factor(K.data, reg=1e-8)
+    np.testing.assert_array_equal(tl.solve(b), jl.solve(b))
+    assert tl.n_floored == 1
+
+
+def test_native_refuses_bad_csr():
+    """The binding checks what the C code would read through raw
+    pointers: a row pointer of the wrong order, a column index outside the
+    matrix, a value count other than the pattern's, a right-hand side of
+    the wrong length all raise ValueError before any C call."""
+    K = sp.csr_matrix(np.array([[2.0, 1.0], [1.0, 2.0]]))
+    p, c, v = K.indptr, K.indices, K.data
+    for call in (lambda: tnative.SparseLDL(3, p, c),
+                 lambda: tnative.rcm_order(2, p, np.array([0, 5, 0, 1])),
+                 lambda: tnative.SparseLDL(2, p, c).factor(v[:3]),
+                 lambda: tnative.SparseBKP(2, p, c, v[:2]),
+                 lambda: tnative.SparseBKP(2, p, c, v).solve(np.ones(3))):
+        with pytest.raises(ValueError):
+            call()
+
+
+HOST_BACKENDS = ("SparseHostKKT", "SparseCallbackKKT", "FullSparseBKPKKT")
+
+
+def _host_backend_solve(be, qp, z, w, mask, *r):
+    return be.solve(be.factor(qp, z, w, mask), qp, z, w, mask, *r)
+
+
+@pytest.mark.parametrize("backend", HOST_BACKENDS)
+@pytest.mark.parametrize("n,me,mi", [(6, 2, 5), (9, 0, 4), (5, 3, 0)])
+def test_host_sparse_backends_match_reference(backend, n, me, mi):
+    """Each host-sparse backend factor + solve on the random DenseQPs of
+    test_dense_qp_matches_reference (one padded row in each nonempty
+    group) against the reference's backend: the same directions within
+    1e-10 relative, with bytes counted each way."""
+    jqp, tqp = _random_dense_qp(n, me, mi, seed=n + me + mi)
+    jr, tr = _dense_zw_rhs(n, me, mi, seed=3)
+    ref = _host_backend_solve(getattr(jsh, backend)(), jqp, *jr)
+    be = getattr(tsh, backend)()
+    out = _host_backend_solve(be, tqp, *tr)
+    for o, r in zip(out, ref):
+        _tree_rel(o, r, 1e-10)
+    assert be.moved["d2h"] > 0 and be.moved["h2d"] > 0
+
+
+@pytest.mark.parametrize("backend", HOST_BACKENDS)
+def test_host_sparse_factor_repins_another_qp(backend):
+    """A backend prepared with one QP and handed another factors the
+    other (its matrices are pinned anew): the same directions as the
+    reference's backend on the second QP within 1e-10 relative."""
+    _, tqp1 = _random_dense_qp(9, 3, 6, seed=1)
+    jqp2, tqp2 = _random_dense_qp(9, 3, 6, seed=2)
+    jr, tr = _dense_zw_rhs(9, 3, 6, seed=4)
+    be = getattr(tsh, backend)()
+    be.prepare(tqp1)
+    out = _host_backend_solve(be, tqp2, *tr)
+    ref = _host_backend_solve(getattr(jsh, backend)(), jqp2, *jr)
+    for o, r in zip(out, ref):
+        _tree_rel(o, r, 1e-10)
+
+
+def test_sparse_bfgs_matches_reference():
+    """SparseBFGS bound to SeparablePairs at x = 0.5: the same RCM order
+    and blocks as the reference's; then one update of a seeded SPD Q
+    (every entry nonzero) within 1e-12 relative, and a stage layout
+    [4, 3, 3] delegated to the batched BFGS alike."""
+    x = np.full(8, 0.5)
+    jh, th = jhess.SparseBFGS(), thess.SparseBFGS()
+    jp, tp = JSeparablePairs(), chip_smoke.separable_pairs(CPU)
+    jp.setup()
+    tp.setup()
+    jh.bind(jp, jnp.asarray(x), jnp.zeros(0), JDenseIneq(g=jnp.zeros(0)))
+    t0 = convert.tensor(np.zeros(0), CPU)
+    th.bind(tp, convert.tensor(x, CPU), t0, DenseIneq(g=t0))
+    np.testing.assert_array_equal(_np(th._perm), jh._perm)
+    assert th._blocks == jh._blocks == [(0, 2), (2, 2), (4, 2), (6, 2)]
+    rng = np.random.default_rng(7)
+    for B, nb in ((1, 8), (4, 3)):
+        M = rng.standard_normal((B, nb, nb))
+        Q = M @ np.swapaxes(M, -1, -2) + nb * np.eye(nb)
+        s_, u = rng.standard_normal((B, nb)), rng.standard_normal((B, nb))
+        ref = jh.update(jnp.asarray(Q), jnp.asarray(s_), jnp.asarray(u), 0.7)
+        out = th.update(*(convert.tensor(v, CPU) for v in (Q, s_, u)), 0.7)
+        _rel(out, ref, 1e-12)
+
+
+def test_solve_generated_lqblend_matches_reference():
+    """solve_generated("lqblend", n=200, eps=1e-8), the case of
+    tests/test_nlp_large.py, in both packages (SparseCallbackKKT shared
+    across calls): the same verdict, SQP and IP counts, f within 1e-9
+    relative."""
+    ref = JG.solve_generated("lqblend", n=200, eps=1e-8)
+    out = TG.solve_generated("lqblend", n=200, eps=1e-8, device=CPU)
+    assert out["result"] == ref["result"] == "optimal"
+    assert (out["sqp_iters"], out["qp_iters_total"]) == \
+        (ref["sqp_iters"], ref["qp_iters_total"])
+    np.testing.assert_allclose(out["obj"], ref["obj"], rtol=1e-9,
+                               atol=1e-15)
+    assert isinstance(TG.generated_solver("lqblend", n=20, device=CPU)
+                      ._kkt_backend, tsh.SparseCallbackKKT)

@@ -444,7 +444,9 @@ def test_port_imports_no_jax():
          "hqp_tpu_torch.convert, hqp_tpu_torch.models.nlp_suite, "
          "hqp_tpu_torch.models.nlp_gen, hqp_tpu_torch.qp.franke, "
          "hqp_tpu_torch.sqp.schittkowski, hqp_tpu_torch.prof_did1000, "
-         "hqp_tpu_torch.parallel.scenarios, hqp_tpu_torch.qp.presolve; "
+         "hqp_tpu_torch.parallel.scenarios, hqp_tpu_torch.qp.presolve, "
+         "hqp_tpu_torch.native, hqp_tpu_torch.qp.kkt_sparse_host, "
+         "hqp_tpu_torch.models.sif, hqp_tpu_torch.ops._build_host; "
          "assert 'jax' not in sys.modules, 'jax imported'"],
         check=True, env=env, cwd=root, timeout=120)
 
@@ -627,29 +629,107 @@ def test_powell_watchdog_matches_reference(start, credit):
 
 
 def test_registry_holds_the_exchangeable_modules():
-    """The names of this slice resolve to the port's classes;
-    ``qp_mat_solver RedSpBKP`` and ``sqp_hela SparseBFGS`` stay
-    unregistered until the host-sparse slice (ROADMAP Q1, R4); a DenseQP
-    program gets DenseKKT from SqpSolver.init."""
+    """The names of the ported slices resolve to the port's classes: since
+    the host-sparse slice ``qp_mat_solver RedSpBKP`` (the name the
+    reference's SparseCallbackKKT takes once ``all_modules`` is imported,
+    ROADMAP R4), ``RedSpBKP_host`` and ``SpBKP``, ``sqp_hela SparseBFGS``
+    and ``prg_name SIF``/``CUTE``; a DenseQP program gets DenseKKT from
+    SqpSolver.init."""
     import hqp_tpu_torch.sqp.schittkowski  # noqa: F401
     from hqp_tpu_torch.qp import kkt as tkkt
     want = {"sqp_solver": {"Powell", "Schittkowski"},
             "sqp_qp_solver": {"Mehrotra", "Franke"},
             "sqp_hela": {"BFGS", "DScale", "Gerschgorin", "AugBFGS",
-                         "Gangster"},
+                         "Gangster", "SparseBFGS"},
             "qp_mat_solver": {"SpSC", "LQDOCP", "DenseKKT", "Riccati",
-                              "FullKKT"}}
+                              "FullKKT", "RedSpBKP", "RedSpBKP_host",
+                              "SpBKP"}}
     for slot, names in want.items():
         assert set(modules.names(slot)) == names, slot
-    assert not modules.has("qp_mat_solver", "RedSpBKP")
-    assert not modules.has("sqp_hela", "SparseBFGS")
-    assert modules.create("qp_mat_solver", "FullKKT").__class__ is \
-        tkkt.FullStageKKT
-    assert modules.create("sqp_qp_solver", "Franke").__class__ is Franke
+    for slot, name, cls in (
+            ("qp_mat_solver", "RedSpBKP", tsh.SparseCallbackKKT),
+            ("qp_mat_solver", "RedSpBKP_host", tsh.SparseHostKKT),
+            ("qp_mat_solver", "SpBKP", tsh.FullSparseBKPKKT),
+            ("qp_mat_solver", "FullKKT", tkkt.FullStageKKT),
+            ("sqp_qp_solver", "Franke", Franke),
+            ("sqp_hela", "SparseBFGS", thess.SparseBFGS)):
+        assert modules.create(slot, name).__class__ is cls, (slot, name)
+    sif = os.path.join(SIF_DIR, "HS21.SIF")
+    for name in ("SIF", "CUTE"):
+        assert modules.create("prg_name", name, path=sif,
+                              device=CPU).__class__ is tsif.PrgSIF
     s = modules.create("sqp_solver", "Schittkowski",
                        TN.PrgMaratos(device=CPU))
     s.init()
     assert isinstance(s.qp, DenseQP) and isinstance(s._kkt_backend, DenseKKT)
+
+
+# -- the host-sparse slice: the SIF reader ----------------------------------------
+
+from hqp_tpu.models import sif as jsif  # noqa: E402
+from tests.test_sparse_bfgs import SeparablePairs as JSeparablePairs  # noqa
+
+from hqp_tpu_torch.models import sif as tsif  # noqa: E402
+from hqp_tpu_torch.qp import kkt_sparse_host as tsh  # noqa: E402
+
+SIF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sif")
+SIF_FILES = ("HS21", "HS27", "HS35", "HS6", "HS7", "HS76", "TAME")
+
+
+@pytest.mark.parametrize("name", SIF_FILES)
+def test_sif_parses_as_reference(name):
+    """Each SIF file of tests/sif parses to the reference's SifData: every
+    field equal (arrays to the bit, NaN ranges included; the compiled F
+    and temporary expressions as code objects)."""
+    path = os.path.join(SIF_DIR, name + ".SIF")
+    jd, td = jsif.load_sif(path), tsif.load_sif(path)
+    for f in jd.__dataclass_fields__:
+        a, b = getattr(td, f), getattr(jd, f)
+        if isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        elif f == "obj_lin":
+            assert sorted(a) == sorted(b)
+            for k in b:
+                np.testing.assert_array_equal(a[k], b[k])
+        else:
+            assert a == b, f
+
+
+@pytest.mark.parametrize("name", ["HS21", "HS7"])
+def test_prg_sif_matches_reference(name):
+    """PrgSIF of HS21 (quadratic) and HS7 (nonlinear elements, LOG and
+    **): the same x0, f0, c, gradient and constraint Jacobian at x0 as the
+    reference's, within 1e-12 relative."""
+    path = os.path.join(SIF_DIR, name + ".SIF")
+    jp, tp = jsif.PrgSIF(path=path), tsif.PrgSIF(path=path, device=CPU)
+    jx, tx = jp.setup(), tp.setup()
+    _close(tx, jx, 0.0)
+    _close(tp.f0(tx), jp.f0(jx), 1e-12)
+    _close(tp.c(tx), jp.c(jx), 1e-12)
+    for o, r in zip(tp._derivs(tx), jp._derivs(jx)):
+        _close(o, r, 1e-12)
+
+
+@pytest.fixture(scope="module")
+def jax_sif():
+    """The reference's solve_sif of HS21 and HS27 (one solve each for the
+    module)."""
+    return {name: jsif.solve_sif(os.path.join(SIF_DIR, name + ".SIF"))
+            for name in ("HS21", "HS27")}
+
+
+@pytest.mark.parametrize("name", ["HS21", "HS27"])
+def test_solve_sif_matches_reference(jax_sif, name):
+    """solve_sif (SqpPowell, Gerschgorin, Mehrotra(1e-10, 60),
+    SparseHostKKT) on the CPU: the reference's verdict, SQP and IP
+    counts, and objective within 1e-8 relative."""
+    ref = jax_sif[name]
+    out = tsif.solve_sif(os.path.join(SIF_DIR, name + ".SIF"), device=CPU)
+    assert out["result"] == ref["result"] == "optimal"
+    assert (out["sqp_iters"], out["qp_iters_total"]) == \
+        (ref["sqp_iters"], ref["qp_iters_total"])
+    _close(out["obj"], ref["obj"], 1e-12, rtol=1e-8)
+    assert out["ok"] and ref["ok"]
 
 
 # -- the scenario batch (BASELINE config 5) ----------------------------------------
@@ -805,8 +885,9 @@ def test_scenario_init_and_steps_match_reference():
 
 def reference_values(scenarios_only=False):
     """The JAX package's results that chip_smoke.py holds the card to
-    (REF_SCEN, REF_ALT, REF_CHAOTIC, REF_FAMILIES, REF_CATENA,
-    REF_F_DID1000), one JSON row each: first REF_SCEN, the unbatched
+    (REF_SCEN, REF_ALT, REF_CHAOTIC, REF_F_DID1000, then those of
+    :func:`host_sparse_reference_values`), one JSON row each: first
+    REF_SCEN, the unbatched
     solves of the port's own 256 draws of BASELINE config 5 (fed as
     numpy, presolved at tau = 0.02) as ["scenarios256", IP count of each
     draw, verdict tally, largest original-row violation]; then [program,
@@ -827,9 +908,6 @@ def reference_values(scenarios_only=False):
                       max(v for *_, v in ref)]), flush=True)
     if scenarios_only:
         return
-
-    from hqp_tpu.models.nlp_gen import solve_generated
-    from hqp_tpu.sqp import powell
 
     def row(s, res, extra):
         return [res, float(s.f), s.iter, s.qp_iters_total, extra]
@@ -856,19 +934,78 @@ def reference_values(scenarios_only=False):
                       qp_eps=eps, **kw)
         print(json.dumps([f"DID-{kmax}", pair, *row(s, res, eps)]),
               flush=True)
+    host_sparse_reference_values()
+
+
+def host_sparse_reference_values():
+    """The JAX package's results that chip_smoke.py phase 18 holds the card
+    to, one JSON row each: ["SIF", file, verdict, obj, SQP, IP] of
+    solve_sif on each file of tests/sif (REF_SIF); [program, backend or
+    hela, verdict, f, SQP, IP] of TP383 through SqpPowell(max_iters=60,
+    Mehrotra(eps=1e-9, max_iters=50)) with SparseHostKKT and with
+    FullSparseBKPKKT, and of SeparablePairs with SparseBFGS (REF_HOST);
+    then the generated families through solve_generated in sorted order,
+    one process sharing its backend as the card's run does (REF_FAMILIES,
+    REF_CATENA): [family, n, verdict, f, SQP, IP, norm_inf, f after each of
+    the first six SQP iterations' QPs].  Run from the repository root on a
+    CPU host (about 6 minutes): ``JAX_PLATFORMS=cpu python -c "import jax;
+    jax.config.update('jax_platforms', 'cpu'); import tests.test_torch_sqp
+    as t; t.host_sparse_reference_values()"``."""
+    import json
+
+    from hqp_tpu.models.nlp_gen import solve_generated
+    from hqp_tpu.models.nlp_suite import PrgTP383
+    from hqp_tpu.qp import kkt_sparse_host as jsh_
+    from hqp_tpu.sqp import powell
+
+    for name in SIF_FILES:
+        out = jsif.solve_sif(os.path.join(SIF_DIR, name + ".SIF"))
+        print(json.dumps(["SIF", name, out["result"], out["obj"],
+                          out["sqp_iters"], out["qp_iters_total"]]),
+              flush=True)
+    for pair in ("RedSpBKP_host", "SpBKP", "SparseBFGS"):
+        if pair == "SparseBFGS":
+            prog, s = "SeparablePairs", JSqpPowell(
+                JSeparablePairs(), max_iters=60, hela=jhess.SparseBFGS())
+        else:
+            be = (jsh_.SparseHostKKT if pair == "RedSpBKP_host"
+                  else jsh_.FullSparseBKPKKT)()
+            prog, s = "TP383", JSqpPowell(
+                PrgTP383(), max_iters=60, kkt_backend=be,
+                qp_solver=JMehrotra(eps=1e-9, max_iters=50, jit=False))
+        s.init()
+        try:
+            res = s.solve()
+        except JSqpError as e:
+            res = e.reason
+        print(json.dumps([prog, pair, res, float(s.f), s.iter,
+                          s.qp_iters_total]), flush=True)
     made = []
     init = powell.SqpPowell.init
 
     def keep(self):           # the solver, to read it after an SqpError
         made.append(self)
         init(self)
+        fs = self.f_trace = []
+        qp_solve = self.qp_solve
+
+        def traced():
+            qp_solve()
+            fs.append(float(self.f))
+
+        self.qp_solve = traced
 
     powell.SqpPowell.init = keep
-    for name in sorted(JG.FAMILIES):
-        n = 2000 if name == "lqblend" else 1000
-        try:
-            res = solve_generated(name, n=n)["result"]
-        except JSqpError as e:
-            res = e.reason
-        print(json.dumps([name, n, *row(made[-1], res,
-                                        made[-1].norm_inf)]), flush=True)
+    try:
+        for name in sorted(JG.FAMILIES):
+            n = 2000 if name == "lqblend" else 1000
+            try:
+                res = solve_generated(name, n=n)["result"]
+            except JSqpError as e:
+                res = e.reason
+            s = made[-1]
+            print(json.dumps([name, n, res, float(s.f), s.iter,
+                              s.qp_iters_total, s.norm_inf,
+                              s.f_trace[:6]]), flush=True)
+    finally:
+        powell.SqpPowell.init = init
