@@ -10,7 +10,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the main path's shape and at edge shapes (s = 124, P = 1);
   4. kernel K2 (batched block-Thomas) against its plain twin, at the main
      path's shape and at edge shapes (N = n = 1; n = 8; a system large
-     enough to stream through the kernel's chunk ring);
+     enough to stream through the kernel's chunk ring; n = 3, the block of
+     phase 19's SFunctionOpt-1000);
   5. at the main path's shapes: each kernel's time per launch (CUDA events
      around 50 back-to-back launches, median of 5 such runs), its mean
      device time per launch from a torch.profiler trace of 50 launches,
@@ -95,7 +96,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      pivots) and (e) SeparablePairs with SparseBFGS, each at REF_HOST; (f)
      every QP tensor and iterate of (b)-(e) on the card; (g) a warm LQBlend
      n = 2000 solve: wall ms, host factor and host solve ms, bytes each way
-     and host syncs per IP iteration, beside phase 16's DenseKKT solve.
+     and host syncs per IP iteration, beside phase 16's DenseKKT solve;
+ 19. the user-model slice (USER_CASES), every QP on the card and every
+     hosted model evaluated on the host: the cc builds of the demo
+     S-functions and the test FMU; (a) the rest of the odc suite at the
+     reference's sizes (DID_SFunction kmax = 60, DIC, DIC_SFunction and
+     DIC_FMU at K = 20, beside the native DID-60), (b) the hosted path at
+     K = 1000 (DID_SFunction with qp_eps = 1e-7 and SFunctionOpt, that is
+     DynamicOpt over the hosted sfun_dic with u_order = 1 and slack
+     controls; K1 and K2 must launch), (c) DynamicOpt in the layouts of
+     tests/test_dynamic_opt2.py, DynamicEst with its confidence intervals,
+     DTOpt over the hosted sfun_did and DTEst: each at the JAX package's
+     verdict and SQP/IP counts with f within 1e-8 (REF_HOSTED,
+     REF_CONFIDENCE), each hosted program at its native twin's f; per
+     solve the wall time, the host-callback time, the bytes each way per
+     SQP iteration, the host syncs per IP iteration and the launches;
+     then K1 and K2 on the first inputs the cases gave them at each shape
+     and dtype, against their plain twins.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -108,6 +125,8 @@ import time
 
 import numpy as np
 import torch
+
+from hqp_tpu_torch.prof_did1000 import SFUNCTION_OPT
 
 #: DID-1000 objective of the JAX reference package on a CPU host in f64:
 #: SqpPowell(PrgDID(kmax=1000), max_iters=50, qp_eps=1e-7) after
@@ -250,6 +269,181 @@ REF_HOST = {
 }
 
 
+def _decay_record():
+    """DynamicEst's measurements (tests/test_formulations.py:75-95): two
+    experiments of dx = -1.3 x from x0 = 1 and 2 on 21 points, with seeded
+    noise of 1e-3 so that the fit's confidence is not rounding noise."""
+    ts = np.linspace(0.0, 1.0, 21)
+    x0s = np.array([[1.0], [2.0]])
+    ys = np.stack([x0 * np.exp(-1.3 * ts)[:, None] for x0 in x0s])
+    ys = ys + 1e-3 * np.random.default_rng(0).standard_normal(ys.shape)
+    return dict(ys_meas=ys, K=20, p_init=[0.5], p_min=[0.0], p_max=[10.0],
+                x0_init=x0s)
+
+
+def _decay_dt_record(dt=0.05, K=20):
+    """DTEst's measurements: two experiments of the discrete decay
+    x+ = (1 - dt p) x at p = 1.3 from x0 = 1 and 2 on 21 points, with
+    seeded noise of 1e-3."""
+    x0s = np.array([[1.0], [2.0]])
+    ks = np.arange(K + 1)
+    ys = np.stack([x0 * ((1.0 - dt * 1.3) ** ks)[:, None] for x0 in x0s])
+    ys = ys + 1e-3 * np.random.default_rng(1).standard_normal(ys.shape)
+    return dict(ys_meas=ys, K=K, dt=dt, p_init=[0.5], p_min=[0.0],
+                p_max=[10.0], x0_init=x0s)
+
+
+#: the double integrator's terminal target in DynamicOpt's knobs
+_DIC_TARGET = dict(x0=[1.0, 0.0], yf_ref=[-1.0, 0.0])
+#: the user-model slice's solves (phase 19), each SqpPowell(prg, **solver),
+#: init(), [simulate()], solve(): name -> (part, prg_name, model, program
+#: keywords, solver keywords, simulate).  The model is None for the hosted
+#: suite's programs and their native twins DID and DIC, ("DIC",) or ("Decay",) for a model in torch ops, and
+#: (S-function, parameter) for a hosted demo S-function.  (a) the rest of
+#: the odc suite at the reference's sizes, with the settings of
+#: tests/test_hxi.py:135-175; (b) the hosted path at K = 1000; (c) the
+#: formulations at the sizes of their JAX tests (tests/test_dynamic_opt2.py,
+#: tests/test_formulations.py; dic_target is test_dynamic_opt_dic's problem
+#: at K = 20), DTOpt over sfun_did and DTEst over a discrete decay
+USER_CASES = {
+    "DID": ("a", "DID", None, dict(kmax=60), {}, False),
+    "DID_SFunction": ("a", "DID_SFunction", None, dict(kmax=60), {}, False),
+    "DIC": ("a", "DIC", None, dict(K=20), {}, False),
+    "DIC_SFunction": ("a", "DIC_SFunction", None, dict(K=20), {}, False),
+    "DIC_FMU": ("a", "DIC_FMU", None, dict(K=20), {}, False),
+    "DID_SFunction-20": ("a", "DID_SFunction", None,
+                         dict(kmax=20, with_cns=False), {}, False),
+    "DID_SFunction-1000": ("b", "DID_SFunction", None, dict(kmax=1000),
+                           dict(max_iters=50, qp_eps=1e-7), True),
+    "SFunctionOpt-1000": ("b", "SFunctionOpt", ("sfun_dic", 1.0),
+                          dict(SFUNCTION_OPT, K=1000),
+                          dict(max_iters=60), False),
+    "min_time": ("c", "DynamicOpt", ("DIC",),
+                 dict(K=24, x0=[0.0, 0.0], u_min=[-1.0], u_max=[1.0],
+                      u_init=[0.5], yf_min=[0.0, 1.0], yf_max=[0.0, 1.0],
+                      t_scale=True, t_weight1=1.0), dict(max_iters=80),
+                 False),
+    "soft_l1": ("c", "DynamicOpt", ("DIC",),
+                dict(_DIC_TARGET, K=30, u_weight2=[0.01],
+                     yf_weight2=[100.0, 100.0], y_soft_max=[np.inf, 0.02],
+                     s_lin=50.0, s_quad=50.0), dict(max_iters=80), False),
+    "u_order1": ("c", "DynamicOpt", ("DIC",),
+                 dict(_DIC_TARGET, K=20, u_order=1, du_weight2=[1e-4],
+                      yf_weight2=[100.0, 100.0]), dict(max_iters=60), False),
+    "du_penalty": ("c", "DynamicOpt", ("DIC",),
+                   dict(_DIC_TARGET, K=20, u_weight2=[0.01],
+                        du_weight2=[0.1], yf_weight2=[100.0, 100.0]),
+                   dict(max_iters=60), False),
+    "decimation": ("c", "DynamicOpt", ("DIC",),
+                   dict(_DIC_TARGET, K=10, decimation=3, u_weight2=[0.01],
+                        yf_weight2=[10.0, 10.0]), dict(max_iters=40), False),
+    "dic_target": ("c", "DynamicOpt", ("DIC",),
+                   dict(_DIC_TARGET, K=20, u_weight2=[0.01],
+                        yf_weight2=[100.0, 100.0]), dict(max_iters=60),
+                   False),
+    "DynamicEst": ("c", "DynamicEst", ("Decay",), _decay_record(),
+                   dict(max_iters=60), False),
+    "DTOpt": ("c", "DTOpt", ("sfun_did", 0.05),
+              dict(_DIC_TARGET, K=20, dt=0.05, u_min=[-20.0], u_max=[20.0],
+                   u_weight2=[0.05], yf_weight2=[100.0, 100.0]),
+              dict(max_iters=60), False),
+    "DTEst": ("c", "DTEst", ("DecayDT",), _decay_dt_record(),
+              dict(max_iters=60), False),
+}
+#: the JAX package's results of USER_CASES on a CPU host in f64 (verdict,
+#: f, SQP, IP; hosted_reference_values() in tests/test_torch_sqp.py)
+REF_HOSTED = {
+    "DID": ("optimal", 98.40000001279562, 1, 24),
+    "DID_SFunction": ("optimal", 98.40000001515537, 1, 24),
+    "DIC": ("optimal", 104.00000002084506, 1, 12),
+    "DIC_SFunction": ("optimal", 104.00000002082722, 1, 12),
+    "DIC_FMU": ("optimal", 104.00000002084506, 1, 12),
+    "DID_SFunction-20": ("optimal", 104.00000001999743, 1, 12),
+    "DID_SFunction-1000": ("optimal", 88.91363107458275, 1, 27),
+    "SFunctionOpt-1000": ("optimal", 89.37537709180582, 11, 112),
+    "min_time": ("optimal", 1.9999999998851326, 7, 62),
+    "soft_l1": ("optimal", 7.948548856296956, 1, 10),
+    "u_order1": ("optimal", 2.490989706627088e-15, 1, 1),
+    "du_penalty": ("optimal", 0.798642911622061, 4, 9),
+    "decimation": ("optimal", 1.1671732522796354, 1, 1),
+    "dic_target": ("optimal", 0.7984124995264895, 1, 1),
+    "DynamicEst": ("optimal", 2.867511706843285e-05, 4, 13),
+    "DTOpt": ("optimal", 3.961421455386295, 1, 4),
+    "DTEst": ("optimal", 3.6362376327903574e-05, 4, 12),
+}
+#: f's tolerance (relative) of phase 19's cases, and of the estimations'
+#: estimates and half-widths
+USER_F_RTOL = 1e-8
+#: the absolute floor of that check, for an optimum at 0 (u_order1's f is
+#: 2.5e-15, rounding noise of a zero optimum)
+USER_F_ATOL = 1e-12
+#: the JAX package's confidence() of the estimation cases of REF_HOSTED:
+#: the estimates (v[0, :nx]) and the ~95% half-widths
+REF_CONFIDENCE = {
+    "DynamicEst": ([1.3001510863281918, 1.0, 2.0],
+                   [0.0010611626830890407, 0.0006790129953399419,
+                    0.000859699354091322]),
+    "DTEst": ([1.3001813895396517, 1.0, 2.0],
+              [0.001143308936786884, 0.0007727978798387823,
+               0.0009756023513570176]),
+}
+#: parity of each hosted program with its native twin (the reference's
+#: tests/test_hxi.py:142-175 tolerances): twin case, relative tolerance;
+#: DID_SFunction-1000's twin is DID-1000 (REF_F_DID1000, within 1e-6)
+HOSTED_TWINS = {"DID_SFunction": ("DID", 1e-6),
+                "DIC_SFunction": ("DIC", 1e-5), "DIC_FMU": ("DIC", 1e-5)}
+
+
+def user_program(name, device):
+    """The port's program of USER_CASES[name] on ``device``."""
+    import hqp_tpu_torch.models.hxi_suite  # noqa: F401  (registers them)
+    import hqp_tpu_torch.omu.dt_opt  # noqa: F401
+    from hqp_tpu_torch.hxi.sfunction import SFunction, demo_sfunction_path
+    from hqp_tpu_torch.omu.hosted import HostedModel
+    from hqp_tpu_torch.omu.integrators import RK4
+    from hqp_tpu_torch.omu.model import Model
+    from hqp_tpu_torch.utils.registry import modules
+
+    class DIC(Model):
+        """Double integrator: states (v, s), input a, outputs = states."""
+        nx, nu, ny, npar = 2, 1, 2, 0
+
+        def ode(self, t, x, u, p):
+            return torch.stack([u[0], x[0]])
+
+    class Decay(Model):
+        """dx = -p x; y = x.  One estimated rate parameter."""
+        nx, nu, ny, npar = 1, 0, 1, 1
+        p0 = (0.5,)
+
+        def ode(self, t, x, u, p):
+            return -p[0] * x
+
+    class DecayDT(Model):
+        """x+ = (1 - 0.05 p) x; y = x.  One estimated rate parameter."""
+        nx, nu, ny, npar = 1, 0, 1, 1
+        p0 = (0.5,)
+        discrete = True
+
+        def dt_update(self, t, x, u, p):
+            return (1.0 - 0.05 * p[0]) * x
+
+    _, prg_name, model, kw, _, _ = USER_CASES[name]
+    if model is None:
+        return modules.create("prg_name", prg_name, **kw, device=device)
+    if model[0] == "DIC":
+        m = DIC()
+    elif model[0] == "Decay":
+        m = Decay()
+        kw = dict(kw, integrator=RK4(steps=4))
+    elif model[0] == "DecayDT":
+        m = DecayDT()
+    else:
+        m = HostedModel(SFunction(demo_sfunction_path(model[0]),
+                                  params=[[model[1]]]))
+    return modules.create("prg_name", prg_name, m, **kw, device=device)
+
+
 #: BASELINE config 5 (bench.py:326-377): scenarios, draw scale, seed,
 #: presolve tau, partition length, IP tolerance
 SCEN = dict(n=256, scale=1e-3, seed=0, tau=0.02, L=20, eps=1e-9)
@@ -287,6 +481,11 @@ REF_SCEN = ([
 #: scenarios of phase 17 compared with the port's unbatched solves on the
 #: card besides the fastest and the slowest
 SCEN_SELF = (0, 1, 2, 3, 64, 255)
+
+
+#: a kernel's largest error relative to its plain twin's largest entry, by
+#: dtype
+KERNEL_RTOL = {torch.float64: 1e-10, torch.float32: 1e-3}
 
 
 def check(cond, msg):
@@ -985,8 +1184,9 @@ def separable_pairs(device):
 
 
 class QPDevices:
-    """Records the device of every QP tensor that Mehrotra.solve is handed
-    and of the iterate it returns, while active (a context manager)."""
+    """Records the device of every tensor of each QP (DenseQP or StageQP)
+    that Mehrotra.solve is handed and of the iterate it returns, while
+    active (a context manager)."""
 
     def __enter__(self):
         from hqp_tpu_torch.qp.mehrotra import Mehrotra
@@ -996,8 +1196,8 @@ class QPDevices:
 
         def solve(slv, qp, state, hot=False):
             out = self._solve(slv, qp, state, hot)
-            rec.update(t.device.type for t in (qp.Q, qp.c, qp.A, qp.b, qp.C,
-                                               qp.d, out.x))
+            rec.update(t.device.type for t in (*vars(qp).values(), out.x)
+                       if torch.is_tensor(t))
             return out
 
         Mehrotra.solve = solve
@@ -1199,6 +1399,155 @@ def catena_drive(smi):
           f"{head}")
 
 
+def user_drive(name, smi):
+    """One case of USER_CASES on the card, every counter set to 0 just
+    before it: SqpPowell(prg, **solver), init(), [simulate()], solve(),
+    held to REF_HOSTED's verdict, SQP and IP counts and f within
+    USER_F_RTOL or USER_F_ATOL (the estimations' estimates and half-widths
+    within USER_F_RTOL).  Prints
+    the wall time, the host-callback time (HostedModel's batches, one read
+    and one write each), the bytes each way per SQP iteration, the host
+    syncs per IP iteration and the launches; returns (f, launches)."""
+    from hqp_tpu_torch.omu import hosted
+    from hqp_tpu_torch.ops import thomas_cuda
+    from hqp_tpu_torch.prof_did1000 import LayerTimers
+    from hqp_tpu_torch.sqp.powell import SqpPowell
+    from hqp_tpu_torch.sqp.solver import SqpError
+    from hqp_tpu_torch.utils import sync
+    part, _, _, _, skw, sim = USER_CASES[name]
+    rres, rf, rit, rip = REF_HOSTED[name]
+    prg = user_program(name, DEVICE)
+    models = [m for m in (getattr(prg, "hosted", None),
+                          getattr(prg, "model", None))
+              if isinstance(m, hosted.HostedModel)]
+    lt = LayerTimers(torch.device(DEVICE))
+    lt.wrap(hosted._HostFn, "run", "hosted")
+    reset_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = SqpPowell(prg, **skw)
+        s.init()
+        if sim:
+            s.simulate()
+        try:
+            res = s.solve()
+        except SqpError as e:
+            res = e.reason
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        lt.restore()
+    launches = {"gj": gj_launches(), "thomas": thomas_cuda.LAUNCHES}
+    f, it, ip = float(s.f), s.iter, s.qp_iters_total
+    d2h = sum(m.moved["d2h"] for m in models) / max(it, 1)
+    h2d = sum(m.moved["h2d"] for m in models) / max(it, 1)
+    print(f"[19{part}] {name}: {res}, f = {f!r} (reference {rf!r}, rel "
+          f"{abs(f - rf) / abs(rf):.1e}), SQP/IP {it} / {ip} (reference "
+          f"{rit} / {rip}), {secs:.3f} s wall, host callbacks "
+          f"{lt.excl['hosted'] * 1e3:.1f} ms in {lt.calls['hosted']} "
+          f"batches, {d2h:.0f} bytes to the host and {h2d:.0f} to the card "
+          f"per SQP iteration, host syncs {sync.COUNT / max(ip, 1):.2f} per "
+          f"IP iteration, launches K1 {launches['gj']} K2 "
+          f"{launches['thomas']}; on {smi}")
+    check((res, it, ip) == (rres, rit, rip),
+          f"{name}: {res} at {it} / {ip} vs reference {REF_HOSTED[name]}")
+    check(abs(f - rf) <= max(USER_F_RTOL * abs(rf), USER_F_ATOL),
+          f"{name}: f = {f} vs reference {rf}")
+    if name in REF_CONFIDENCE:
+        theta, half = (torch.tensor(a, dtype=torch.float64, device=DEVICE)
+                       for a in REF_CONFIDENCE[name])
+        _, got = prg.confidence(s.x)
+        est = s.x[0, :prg.nx]
+        e = max(rel_err(est, theta), rel_err(got, half))
+        print(f"[19{part}] {name} confidence: estimates "
+              f"{est.tolist()}, half-widths {got.tolist()}, largest rel "
+              f"difference to the reference {e:.1e}")
+        check(e <= USER_F_RTOL, f"{name}: confidence {est.tolist()}, "
+              f"{got.tolist()} vs reference {REF_CONFIDENCE[name]}")
+    return f, launches
+
+
+def phase_19(smi):
+    """The user-model slice on the card (see the module docstring)."""
+    from hqp_tpu_torch.hxi import fmu, sfunction
+    from hqp_tpu_torch.ops import gj_cuda, thomas_cuda
+
+    # -- the builds --------------------------------------------------------------
+    t0 = time.perf_counter()
+    paths = [sfunction.demo_sfunction_path(n) for n in ("sfun_did",
+                                                        "sfun_dic")]
+    paths.append(fmu.build_test_fmu())
+    built = ", ".join(f"{k} built={v['built']}"
+                      for k, v in sfunction.INFO.items())
+    print(f"[19] S-functions and test FMU built in "
+          f"{time.perf_counter() - t0:.1f} s ({built}) -> {', '.join(paths)}")
+
+    # keep each kernel's first inputs at every shape and dtype the cases
+    # give it, with the first case that did, for their comparison below
+    inputs = {}
+    gj_fn, th_fn = gj_cuda.interior_factor, thomas_cuda.thomas_solve
+
+    def gj_spy(M, B):
+        key = ("K1", tuple(M.shape), B.shape[-1], M.dtype)
+        inputs.setdefault(key, (name, M.clone(), B.clone()))
+        return gj_fn(M, B)
+
+    def th_spy(D, U, r):
+        key = ("K2", tuple(D.shape), r.shape[-1], D.dtype)
+        inputs.setdefault(key, (name, D.clone(), U.clone(), r.clone()))
+        return th_fn(D, U, r)
+
+    fs = {}
+    gj_cuda.interior_factor, thomas_cuda.thomas_solve = gj_spy, th_spy
+    try:
+        with QPDevices() as qd:
+            for name, case in USER_CASES.items():
+                fs[name], launches = user_drive(name, smi)
+                if case[0] == "b":
+                    check(launches["gj"]["tile"] + launches["gj"]["large"]
+                          > 0 and launches["thomas"] > 0,
+                          f"{name} skipped a kernel: {launches}")
+    finally:
+        gj_cuda.interior_factor, thomas_cuda.thomas_solve = gj_fn, th_fn
+    print(f"[19] devices of the QP tensors and iterates: "
+          f"{sorted(qd.devices)}")
+    check(qd.devices == {DEVICE}, f"a QP left the card: {qd.devices}")
+
+    # -- the kernels on the cases' own inputs, against their twins ------------
+    for (k, shape, b, dt), (case, *a) in inputs.items():
+        on_card = a[0].device.type == "cuda"
+        if k == "K1":
+            way = gj_cuda.route(shape[-1], b, dt, a[0].device) if on_card \
+                else "plain"
+            out, ref = gj_cuda.interior_factor(*a), \
+                gj_cuda.interior_factor_plain(*a)
+            e = max(rel_err(o, r) for o, r in zip(out, ref))
+        else:
+            way = (f"plan {thomas_cuda.plan(shape[-3], shape[-1], dt)}"
+                   if on_card else "plain")
+            e = rel_err(thomas_cuda.thomas_solve(*a),
+                        thomas_cuda.thomas_solve_plain(*a))
+        print(f"[19] {k} on {case}'s first inputs {list(shape)}, "
+              f"{'b' if k == 'K1' else 'rhs'}={b}, {str(dt)[6:]}, {way}: "
+              f"rel err {e:.2e}")
+        check(e <= KERNEL_RTOL[dt],
+              f"{k} disagrees with its twin on {case}'s inputs ({e})")
+    check({"K1", "K2"} <= {k[0] for k in inputs},
+          f"phase 19 gave the kernels no inputs: {list(inputs)}")
+    for name, (twin, rtol) in HOSTED_TWINS.items():
+        check(abs(fs[name] - fs[twin]) <= rtol * abs(fs[twin]),
+              f"{name}: f = {fs[name]} vs its native twin {twin}'s "
+              f"{fs[twin]}")
+    f = fs["DID_SFunction-1000"]
+    check(abs(f - REF_F_DID1000) <= 1e-6 * REF_F_DID1000,
+          f"DID_SFunction-1000: f = {f} vs DID-1000's {REF_F_DID1000}")
+    print(f"[19] hosted programs against their native twins: "
+          + ", ".join(f"{n} {fs[n]!r} / {t} {fs[t]!r}"
+                      for n, (t, _) in HOSTED_TWINS.items())
+          + f", DID_SFunction-1000 {f!r} / DID-1000 {REF_F_DID1000!r}")
+
+
 def main():
     # -- 1. device and toolchain -----------------------------------------
     if not torch.cuda.is_available():
@@ -1226,7 +1575,7 @@ def main():
             print("[2]   " + ln.strip())
 
     # -- 3. K1 against its plain twin -------------------------------------
-    tol = {torch.float64: 1e-10, torch.float32: 1e-3}
+    tol = KERNEL_RTOL
     errs = {"gj": 0.0, "thomas": 0.0}
     cases = [(100, 48, 4, torch.float64, False),
              (100, 48, 4, torch.float32, False),
@@ -1280,7 +1629,8 @@ def main():
             (3, 101, 6, torch.float64), (3, 101, 6, torch.float32),
             (1, 1, 1, torch.float64), (1, 1, 1, torch.float32),
             (1, 101, 8, torch.float64), (1, 101, 8, torch.float32),
-            (2, 600, 6, torch.float64), (2, 600, 6, torch.float32)]):
+            (2, 600, 6, torch.float64), (2, 600, 6, torch.float32),
+            (1, 1001, 3, torch.float64), (1, 1001, 3, torch.float32)]):
         D, U, r = thomas_inputs(Bn, N, n, dt, seed=10 + i)
         x = thomas_cuda.thomas_solve(D, U, r)
         xr = thomas_cuda.thomas_solve_plain(D, U, r)
@@ -1452,6 +1802,9 @@ def main():
 
     # -- 18. the host-sparse slice ------------------------------------------------
     phase_18(smi, dense)
+
+    # -- 19. the user-model slice -------------------------------------------------
+    phase_19(smi)
 
     def row(key, name, replaces):
         t = times[key]

@@ -29,9 +29,19 @@ has an obvious counterpart in the JAX reference package:
   docp/      stage-wise ``Docp`` programs and general ``Nlp`` programs,
              with ``torch.func`` derivatives
   omu/       the Omuses front end: ``OmuProgram`` (continuous-time
-             multistage programs) and the fixed-step integrators
-             ``Euler``, ``RK4`` and ``IMP`` (registered under
-             ``prg_integrator``)
+             multistage programs), the fixed-step integrators ``Euler``,
+             ``RK4`` and ``IMP`` (registered under ``prg_integrator``);
+             the user's ``Model`` (torch ops) and ``HostedModel`` (an
+             S-function or FMU evaluated on the host, one counted copy
+             of a batch of stages each way); the formulations
+             ``DynamicOpt``, ``DynamicEst``, ``DTOpt`` and ``DTEst``
+             (registered under ``prg_name``, with the aliases
+             SFunctionOpt and SFunctionEst); ``plt_io`` (OmSim .plt files)
+  hxi/       hosting of external models: the Python SimStruct
+             (``PySimStruct``, ``PySFunctionHost``), compiled S-functions
+             (``SFunction``; ``compile_sfunction`` builds a .c source
+             against ``csrc/hxi/`` with cc into ``build/``) and FMI 2.0
+             FMUs (``Fmu``, ``build_test_fmu``)
   models/    ``PrgDID``, ``PrgCrane`` and the odc suite (``omu_suite``:
              ``PrgBatchReactor``, ``PrgBio``, ``PrgTP383omu``,
              ``PrgHS99omu``, ``PrgCranePar``), registered under
@@ -77,7 +87,14 @@ from hqp_tpu_torch.docp.program import Docp  # noqa: E402
 from hqp_tpu_torch.qp.kkt_sparse_host import (  # noqa: E402
     FullSparseBKPKKT, SparseCallbackKKT, SparseHostKKT)
 from hqp_tpu_torch.models.sif import PrgSIF, solve_sif  # noqa: E402
+from hqp_tpu_torch.omu.model import Model  # noqa: E402
+from hqp_tpu_torch.omu.hosted import HostedModel  # noqa: E402
+from hqp_tpu_torch.omu.dynamic_opt import DynamicOpt  # noqa: E402
+from hqp_tpu_torch.omu.dynamic_est import DynamicEst  # noqa: E402
+from hqp_tpu_torch.omu.dt_opt import DTEst, DTOpt  # noqa: E402
+import hqp_tpu_torch.models.hxi_suite  # noqa: E402,F401  (registers it)
 
 __all__ = ["modules", "StageQP", "DenseQP", "Mehrotra", "SqpSolver",
            "solve", "Docp", "SparseCallbackKKT", "SparseHostKKT",
-           "FullSparseBKPKKT", "PrgSIF", "solve_sif"]
+           "FullSparseBKPKKT", "PrgSIF", "solve_sif", "Model",
+           "HostedModel", "DynamicOpt", "DynamicEst", "DTOpt", "DTEst"]

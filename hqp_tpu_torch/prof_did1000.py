@@ -1,9 +1,11 @@
-"""Where a solve's time goes on the card (DID-1000, Crane, LQBlend, scenarios).
+"""Where a solve's time goes on the card (DID-1000, Crane, LQBlend,
+scenarios, a hosted model).
 
     python -m hqp_tpu_torch.prof_did1000 [--kmax 1000] [--device cuda]
     python -m hqp_tpu_torch.prof_did1000 --program Crane [--kmax 50]
     python -m hqp_tpu_torch.prof_did1000 --program LQBlend [--kmax 2000]
     python -m hqp_tpu_torch.prof_did1000 --program Scenarios256 [--kmax 256]
+    python -m hqp_tpu_torch.prof_did1000 --program SFunctionOpt [--kmax 1000]
 
 Phases, each printed on lines of its own:
   1. chained KKT factor+solve links at the point of ``bench.py``'s
@@ -13,7 +15,8 @@ Phases, each printed on lines of its own:
      factor / solve split and the KKT residual of the last link;
   2. the layer split of one warm SqpPowell solve (init, simulate, solve),
      by host timers that synchronize the device on entry and exit; each
-     layer's time excludes the layers it calls;
+     layer's time excludes the layers it calls; and the solve's host syncs
+     per IP iteration;
   3. a torch.profiler trace of one more warm solve: device busy time,
      the device's idle share of the profiled window, kernels per IP
      iteration, and the kernels with the most device time;
@@ -31,7 +34,13 @@ batched solve of BASELINE config 5 (``kmax`` scenarios of DID-60, the
 port's draws of seed 0, presolved at tau = 0.02, Mehrotra(PartitionedKKT(
 L=20), eps=1e-9) through ``make_scenario_solve``), with the batched
 make_qp, the presolve and the violation split out; there an "IP
-iteration" is one step of the whole batch.  Phase 3 needs a CUDA device
+iteration" is one step of the whole batch.  ``--program SFunctionOpt``
+runs them on ``DynamicOpt`` over the hosted S-function ``sfun_dic`` at
+K = kmax (chip_smoke.py phase 19's SFunctionOpt-1000: the soft-constraint
+problem with u_order = 1 and slack controls; init, solve), with the hosted
+model's batches ("hosted callbacks": the copy of a batch of stages to the
+host, the C calls and finite differences there, the copy back) split out
+of make_qp and the line search.  Phase 3 needs a CUDA device
 and is skipped
 with ``--device cpu``, where the script serves only to check itself at a
 small ``--kmax``.
@@ -50,9 +59,12 @@ import torch
 
 from hqp_tpu_torch.docp.nlp import Nlp
 from hqp_tpu_torch.docp.program import Docp
+from hqp_tpu_torch.hxi.sfunction import SFunction, demo_sfunction_path
 from hqp_tpu_torch.models.crane import PrgCrane
 from hqp_tpu_torch.models.did import PrgDID
 from hqp_tpu_torch.models.nlp_gen import generated_solver
+from hqp_tpu_torch.omu import hosted
+from hqp_tpu_torch.omu.dynamic_opt import DynamicOpt
 from hqp_tpu_torch.parallel import scenarios
 from hqp_tpu_torch.qp import kkt as K_
 from hqp_tpu_torch.qp import kkt_sparse_host as sparse_host
@@ -62,6 +74,7 @@ from hqp_tpu_torch.sqp import hessian
 from hqp_tpu_torch.sqp.powell import SqpPowell
 from hqp_tpu_torch.sqp.solver import SqpError
 from hqp_tpu_torch.utils import masked as mk
+from hqp_tpu_torch.utils import sync as host_sync
 
 #: timed links per backend, after one warm-up link
 REPS = 20
@@ -177,12 +190,36 @@ def scenario_solve(n, device):
             f"largest original-row violation {float(viol.max()):.4e}")
 
 
+#: DynamicOpt's keywords of the SFunctionOpt problem (chip_smoke.py's
+#: SFunctionOpt-1000 at K = 1000): the soft-constraint problem of
+#: tests/test_formulations.py:61-73 with u_order = 1 and a linear weight on
+#: the soft row (slack controls)
+SFUNCTION_OPT = dict(x0=[1.0, 0.0], u_weight2=[0.01], yf_ref=[-1.0, 0.0],
+                     yf_weight2=[100.0, 100.0],
+                     y_soft_max=[float("inf"), 0.05], s_quad=1e4,
+                     u_order=1, s_lin=[0.0, 50.0])
+
+
+def sfunction_opt(kmax, device):
+    """SqpPowell over DynamicOpt of the hosted sfun_dic (mass 1) at K =
+    kmax with the keywords SFUNCTION_OPT."""
+    model = hosted.HostedModel(SFunction(demo_sfunction_path("sfun_dic"),
+                                         params=[[1.0]]))
+    prg = DynamicOpt(model, K=kmax, **SFUNCTION_OPT, device=device)
+    return SqpPowell(prg, max_iters=60)
+
+
 def solve_once(kmax, device, program="DID"):
     """One init/simulate/solve: DID at the recorded reference runs'
     qp_eps = 1e-7 (ROADMAP Q3 R7), Crane at the defaults, LQBlend as
-    solve_generated runs it (n = kmax); or one scenario batch."""
+    solve_generated runs it (n = kmax); SFunctionOpt by init/solve; or one
+    scenario batch."""
     if program == "Scenarios256":
         return scenario_solve(kmax, device)
+    if program == "SFunctionOpt":
+        s = sfunction_opt(kmax, device)
+        s.init()
+        return s, s.solve()
     if program == "Crane":
         s = SqpPowell(PrgCrane(K=kmax, device=device), max_iters=100)
     elif program == "LQBlend":
@@ -219,6 +256,8 @@ def layer_split(kmax, device, program):
         lt.wrap(PartitionedKKT, "factor", "KKT factor")
         lt.wrap(PartitionedKKT, "solve", "KKT solve")
     else:
+        if program == "SFunctionOpt":
+            lt.wrap(hosted._HostFn, "run", "hosted callbacks")
         lt.wrap(Docp, "simulate", "simulate")
         lt.wrap(Docp, "make_qp", "make_qp")
         lt.wrap(Docp, "update_fbd_qp", "update_fbd_qp")
@@ -227,6 +266,7 @@ def layer_split(kmax, device, program):
     lt.wrap(Mehrotra, "cold_start", "IP cold start (excl. KKT)")
     lt.wrap(Mehrotra, "step", "IP step (excl. KKT)")
     sync(dev)
+    host_sync.COUNT = 0
     t0 = time.perf_counter()
     try:
         s, res = solve_once(kmax, device, program)
@@ -234,8 +274,10 @@ def layer_split(kmax, device, program):
     finally:
         lt.restore()
     wall = (time.perf_counter() - t0) * 1e3
+    ip = s.qp_iters_total
     print(f"[2] warm solve: {res}, {wall:.1f} ms wall, SQP {s.iter}, IP "
-          f"{s.qp_iters_total}")
+          f"{ip}, host syncs {host_sync.COUNT / max(ip, 1):.2f} per IP "
+          f"iteration")
     for label, secs in sorted(lt.excl.items(), key=lambda kv: -kv[1]):
         n = lt.calls[label]
         print(f"[2]   {label}: {secs * 1e3:.1f} ms in {n} calls "
@@ -304,17 +346,20 @@ def default_eps(kmax, device):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--program",
-                    choices=("DID", "Crane", "LQBlend", "Scenarios256"),
+                    choices=("DID", "Crane", "LQBlend", "Scenarios256",
+                             "SFunctionOpt"),
                     default="DID")
     ap.add_argument("--kmax", type=int, default=None,
-                    help="stages (default 1000 for DID, 50 for Crane), "
+                    help="stages (default 1000 for DID and SFunctionOpt, "
+                    "50 for Crane), "
                     "LQBlend's n (default 2000), or the scenarios of the "
                     "batch (default 256)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     did = args.program == "DID"
     kmax = args.kmax or {"DID": 1000, "Crane": 50, "LQBlend": 2000,
-                         "Scenarios256": 256}[args.program]
+                         "Scenarios256": 256,
+                         "SFunctionOpt": 1000}[args.program]
     if args.device == "cuda":
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

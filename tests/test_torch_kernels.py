@@ -1105,3 +1105,297 @@ def test_solve_generated_lqblend_matches_reference():
                                atol=1e-15)
     assert isinstance(TG.generated_solver("lqblend", n=20, device=CPU)
                       ._kkt_backend, tsh.SparseCallbackKKT)
+
+
+# -- the user-model slice: hosted models, the hxi build, plt files, estimations ---
+
+import json  # noqa: E402
+import os  # noqa: E402
+import shutil  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+import types  # noqa: E402
+
+from hqp_tpu.hxi import fmu as jfmu  # noqa: E402
+from hqp_tpu.hxi.sfunction import SFunction as JSFunction  # noqa: E402
+from hqp_tpu.hxi.sfunction import demo_sfunction_path as jdemo_path  # noqa
+from hqp_tpu.hxi.simstruct import PySFunctionHost as JPySFunctionHost  # noqa
+from hqp_tpu.models import hxi_suite as JH  # noqa: E402
+from hqp_tpu.omu import plt_io as jplt  # noqa: E402
+from hqp_tpu.omu.hosted import HostedModel as JHostedModel  # noqa: E402
+from tests.test_hxi import _PyDic  # noqa: E402
+from tests.test_torch_sqp import check_user_solve  # noqa: E402
+
+from hqp_tpu_torch.hxi import fmu as tfmu  # noqa: E402
+from hqp_tpu_torch.hxi import sfunction as tsfun  # noqa: E402
+from hqp_tpu_torch.hxi.simstruct import PySFunctionHost  # noqa: E402
+from hqp_tpu_torch.models import hxi_suite as TH  # noqa: E402
+from hqp_tpu_torch.omu import plt_io as tplt  # noqa: E402
+from hqp_tpu_torch.omu.hosted import HostedModel  # noqa: E402
+from hqp_tpu_torch.utils import sync  # noqa: E402
+
+
+def _evaluators(kind):
+    """(JAX evaluator, port evaluator) of one hosted model kind."""
+    if kind in ("sfun_dic", "sfun_did"):
+        par = [[2.0]] if kind == "sfun_dic" else [[0.1]]
+        return (JSFunction(jdemo_path(kind), params=par),
+                tsfun.SFunction(tsfun.demo_sfunction_path(kind), params=par))
+    if kind == "python":
+        return (JPySFunctionHost(_PyDic(), params=[[2.0]]),
+                PySFunctionHost(_PyDic(), params=[[2.0]]))
+    return (jfmu.Fmu(jfmu.build_test_fmu(), params={"m": 4.0}),
+            tfmu.Fmu(tfmu.build_test_fmu(), params={"m": 4.0}))
+
+
+@pytest.mark.parametrize("kind", ["sfun_dic", "sfun_did", "fmu", "python"])
+def test_hosted_model_matches_reference(kind):
+    """HostedModel's values and vmap(jacfwd) Jacobians over a batch of 7
+    stages equal the reference's to the last bit (the same C calls, the
+    same finite differences or the FMU's analytic Jacobian), for the state
+    map (ode or dt_update) and the outputs; the batched call equals calls
+    made stage by stage; each batch crosses to the host in one counted
+    read, and its bytes are counted each way."""
+    jev, tev = _evaluators(kind)
+    jm, tm = JHostedModel(jev), HostedModel(tev)
+    assert (tm.nx, tm.nu, tm.ny, tm.discrete) == \
+        (jm.nx, jm.nu, jm.ny, jm.discrete)
+    rng = np.random.default_rng(11)
+    K, nx, nu = 7, tm.nx, tm.nu
+    T, X, U = (rng.standard_normal(s) for s in ((K,), (K, nx), (K, nu)))
+    step = "dt_update" if tm.discrete else "ode"
+    for fn in (step, "outputs"):
+        def jf(t, x, u):
+            return getattr(jm, fn)(t, x, u, ())
+
+        def tf(t, x, u):
+            return getattr(tm, fn)(t, x, u, ())
+
+        ja = [jnp.asarray(a) for a in (T, X, U)]
+        ta = [torch.as_tensor(a) for a in (T, X, U)]
+        jval = jax.vmap(jf)(*ja)
+        jjac = jax.vmap(jax.jacfwd(jf, argnums=(1, 2)))(*ja)
+        sync.COUNT, moved = 0, dict(tm.moved)
+        tval = torch.func.vmap(tf)(*ta)
+        assert sync.COUNT == 1
+        assert tm.moved["d2h"] - moved["d2h"] == K * (1 + nx + nu) * 8
+        assert tm.moved["h2d"] - moved["h2d"] == tval.numel() * 8
+        sync.COUNT = 0
+        tjac = torch.func.vmap(torch.func.jacfwd(tf, argnums=(1, 2)))(*ta)
+        assert sync.COUNT == 2            # one value batch, one Jacobian batch
+        np.testing.assert_array_equal(tval.numpy(), np.asarray(jval))
+        for o, r in zip(tjac, jjac):
+            np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+        # stage by stage, in reverse order: the same bits
+        for k in reversed(range(K)):
+            np.testing.assert_array_equal(
+                tf(*(a[k] for a in ta)).numpy(), tval[k].numpy())
+            for o, r in zip(torch.func.jacfwd(tf, argnums=(1, 2))(
+                    *(a[k] for a in ta)), tjac):
+                np.testing.assert_array_equal(o.numpy(), r[k].numpy())
+
+
+def test_hosted_second_derivative_raises():
+    """An exact Hessian through a hosted model (Docp.eval_hess_blocks,
+    the Gerschgorin hela's input) raises in both packages: the reference
+    with "Pure callbacks do not support JVP", the port naming the hosted
+    model; neither returns zeros."""
+    jp, tp = JH.PrgDICSFunction(K=3), TH.PrgDICSFunction(K=3, device=CPU)
+    v = np.asarray(jp.setup())
+    tp.setup()
+    rng = np.random.default_rng(2)
+    y = rng.standard_normal((3, 2))
+    z = {g: rng.random(v.shape) for g in ("bl", "bu")}
+    z["gl"] = z["gu"] = np.zeros((4, 1))
+    zj = dict(z, gl=np.zeros((4, 0)), gu=np.zeros((4, 0)))
+    with pytest.raises(ValueError, match="Pure callbacks do not support"):
+        jp.eval_hess_blocks(jnp.asarray(v), jnp.asarray(y),
+                            JIneqGroups(**{g: jnp.asarray(a)
+                                           for g, a in zj.items()}))
+    with pytest.raises(RuntimeError, match="hosted model 'sfun_dic'"):
+        tp.eval_hess_blocks(convert.tensor(v, CPU), {"dyn": _t(y)},
+                            convert.ineq(z, CPU))
+
+
+def _tree_listing(root):
+    """(size, mtime) of each file under root, but the interpreter's
+    __pycache__ and the shared libraries the JAX package itself rebuilds
+    next to their sources when stale (hqp_tpu/hxi/sfunction.py:57-71), which
+    a test worker running beside this one may do (the port's own writes,
+    shared libraries included, are audited by _BUILD_PROBE)."""
+    out = {}
+    for d, _, files in os.walk(root):
+        if "__pycache__" in d:
+            continue
+        for f in files:
+            p = os.path.join(d, f)
+            if not p.endswith(".so"):
+                out[p] = (os.path.getsize(p), os.path.getmtime(p))
+    return out
+
+
+#: run in a fresh interpreter that imports only the port: points the hxi
+#: build root at a new directory (argv[1]), so that every build happens,
+#: then records through an audit hook every path the process opens for
+#: writing, creates, renames, links, removes or changes mode of, and the
+#: output (-o) of every compiler it starts, while it builds both demo
+#: S-functions and the test FMU, builds one again, loads the FMU and runs
+#: a failing compile; prints one JSON object
+_BUILD_PROBE = r"""
+import json, os, sys
+from hqp_tpu_torch.hxi import fmu, sfunction
+default = sfunction.BUILD_ROOT
+sfunction.BUILD_ROOT = fmu.BUILD_ROOT = sys.argv[1]
+WRITE = os.O_WRONLY | os.O_RDWR | os.O_CREAT | os.O_APPEND | os.O_TRUNC
+PATHS = ("os.link", "os.symlink", "os.truncate", "shutil.rmtree",
+         "shutil.move", "shutil.copyfile")
+writes, cc_out = [], []
+
+
+def where(path, dir_fd=-1):
+    # path, resolved against dir_fd (shutil.rmtree removes by dir_fd)
+    path = os.fsdecode(path)
+    if isinstance(dir_fd, int) and dir_fd >= 0 and not os.path.isabs(path):
+        path = os.path.join(os.readlink(f"/proc/self/fd/{dir_fd}"), path)
+    return path
+
+
+def hook(event, args):
+    if event == "open":
+        path, mode, flags = args
+        if isinstance(path, (str, bytes)) and (
+                any(c in mode for c in "wax+") if mode else flags & WRITE):
+            writes.append(where(path))
+    elif event in ("os.rename", "os.replace"):
+        writes.extend([where(args[0], args[2]), where(args[1], args[3])])
+    elif event in ("os.remove", "os.rmdir"):
+        writes.append(where(*args[:2]))
+    elif event in ("os.mkdir", "os.chmod"):
+        if isinstance(args[0], (str, bytes)):
+            writes.append(where(args[0], args[2]))
+    elif event in PATHS:
+        writes.extend(where(a) for a in args[:2]
+                      if isinstance(a, (str, bytes)))
+    elif event == "subprocess.Popen":
+        argv = [os.fsdecode(a) for a in args[1]]
+        if "-o" in argv:
+            cc_out.append(argv[argv.index("-o") + 1])
+
+
+sys.addaudithook(hook)
+paths = [sfunction.demo_sfunction_path(n) for n in ("sfun_did", "sfun_dic")]
+paths.append(fmu.build_test_fmu())
+built = [sfunction.INFO[os.path.basename(p)]["built"] for p in paths]
+again = sfunction.demo_sfunction_path("sfun_did")
+hit = sfunction.INFO["sfun_did.so"]["built"]
+f = fmu.Fmu(paths[2])
+try:
+    sfunction.run_cc(["cc", "-x", "c", "-", "-o", os.devnull])
+    failed = ""
+except RuntimeError as e:
+    failed = str(e)
+print(json.dumps(dict(
+    default=default, paths=paths, built=built, again=again, hit=hit,
+    fmu_dir=f._dir, failed=failed, writes=writes, cc_out=cc_out,
+    jax=sorted(m for m in sys.modules
+               if m.split(".")[0] in ("jax", "hqp_tpu")))))
+"""
+
+
+def test_hxi_build_writes_only_under_build():
+    """The S-functions and the test FMU are compiled from the port's own
+    sources (csrc/hxi) into build/hqp_tpu_torch_hxi/<hash>/, keyed by a
+    hash of sources and flags, and each loaded FMU is unpacked there too.
+    In a fresh interpreter that imports only the port and builds everything
+    anew (_BUILD_PROBE), every file it writes, creates, renames or removes,
+    shared libraries included, and every compiler output lies under its
+    build root, which by default lies under build/; a rebuild of the same
+    source is a cache hit and a failed compile raises.  Nothing under
+    native/ or hqp_tpu/ changes."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    build_dir = os.path.join(root, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    before = {d: _tree_listing(os.path.join(root, d))
+              for d in ("native", "hqp_tpu")}
+    fresh = tempfile.mkdtemp(prefix="hxi_probe_", dir=build_dir)
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-B", "-c", _BUILD_PROBE, fresh], cwd=root,
+            env=dict(os.environ, PYTHONPATH=root), stdin=subprocess.DEVNULL,
+            capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(fresh, ignore_errors=True)
+    assert got["default"] == os.path.join(build_dir, "hqp_tpu_torch_hxi")
+    assert got["jax"] == []
+    under = fresh + os.sep
+    assert all(p.startswith(under) for p in got["paths"]), got["paths"]
+    assert got["built"] == [True, True, True]
+    assert (got["again"], got["hit"]) == (got["paths"][0], False)
+    assert got["fmu_dir"].startswith(under)
+    assert "cc failed" in got["failed"]
+    assert any(w.endswith(".so") for w in got["writes"])
+    stray = [w for w in got["writes"]
+             if not os.path.realpath(w).startswith(os.path.realpath(under))]
+    assert stray == [], stray
+    outs = [o for o in got["cc_out"] if o != os.devnull]
+    assert len(outs) == 3 and all(o.startswith(under) for o in outs), outs
+    assert {d: _tree_listing(os.path.join(root, d))
+            for d in ("native", "hqp_tpu")} == before
+    paths = [tsfun.demo_sfunction_path(n) for n in ("sfun_did", "sfun_dic")]
+    build = os.path.join(build_dir, "hqp_tpu_torch_hxi") + os.sep
+    assert all(p.startswith(build) and os.path.isfile(p) for p in paths)
+    ev = tsfun.SFunction(paths[0], params=[[0.1]])
+    jev = JSFunction(jdemo_path("sfun_did"), params=[[0.1]])
+    np.testing.assert_array_equal(ev.update(0.0, [1.0, 0.0], [2.0]),
+                                  jev.update(0.0, [1.0, 0.0], [2.0]))
+    with pytest.raises(RuntimeError, match="expects 1 parameter"):
+        tsfun.SFunction(paths[1], params=[])
+
+
+def test_plt_io_matches_reference(tmp_path):
+    """write_plt gives the same bytes from the same inputs; read_plt (with
+    windowing and duplicate-time replacement), plot_series and
+    solver_trajectory (of a solver holding tensors) give the same
+    arrays."""
+    rng = np.random.default_rng(4)
+    ts = np.linspace(0.0, 2.0, 7)
+    X, U = rng.standard_normal((7, 3)), rng.standard_normal((6, 2))
+    for pkg, name in ((jplt, "j.plt"), (tplt, "t.plt")):
+        pkg.write_plt(tmp_path / name, ts, X, U, tscale=1.5)
+    assert (tmp_path / "j.plt").read_bytes() == \
+        (tmp_path / "t.plt").read_bytes()
+    w = tmp_path / "w.plt"
+    w.write_text("5 0 2\ntime\nv\n0.0 1.0\n0.5 2.0\n0.5 3.0\n0.6 4.0\n"
+                 "1.0 5.0\n")
+    for kw in ({}, dict(tstart=0.5, tend=0.6), dict(dtmin=0.45)):
+        for p in (tmp_path / "t.plt", w):
+            jn, jd = jplt.read_plt(p, **kw)
+            tn, td = tplt.read_plt(p, **kw)
+            assert tn == jn
+            np.testing.assert_array_equal(td, jd)
+    for sidx in range(5):
+        assert tplt.plot_series(ts, X, U, sidx, tscale=2.0) == \
+            jplt.plot_series(ts, X, U, sidx, tscale=2.0)
+    x = rng.standard_normal((7, 5))
+    prg = types.SimpleNamespace(nx=3, nu=2, sps=2, ts=np.linspace(0, 1, 13))
+    ref = jplt.solver_trajectory(types.SimpleNamespace(prg=prg, x=x))
+    tprg = types.SimpleNamespace(nx=3, nu=2, sps=2, ts=_t(prg.ts))
+    out = tplt.solver_trajectory(types.SimpleNamespace(prg=tprg, x=_t(x)))
+    for o, r in zip(out, ref):
+        np.testing.assert_array_equal(o, r)
+
+
+#: the estimations: DynamicEst on the decay model in torch ops and DTEst on
+#: its discrete twin (one QP shape, so that the reference compiles its
+#: interior point once)
+ESTIMATIONS = ("DynamicEst", "DTEst")
+
+
+@pytest.mark.parametrize("name", ESTIMATIONS)
+def test_estimation_solves_match_reference(name):
+    """Each estimation of chip_smoke.USER_CASES through SqpPowell in both
+    packages, then confidence(): see :func:`check_user_solve`."""
+    check_user_solve(name)

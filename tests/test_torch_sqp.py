@@ -9,6 +9,7 @@ CPU (``device="cpu"``, through the helpers below), where the kernel
 wrappers take their plain twins.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -376,6 +377,10 @@ OMU_PROGRAMS = ("Crane", "BatchReactor", "Bio", "TP383omu", "HS99omu",
                 "CranePar")
 
 
+#: the programs of the user-model slice that take no model, by registry name
+USER_PROGRAMS = ("DID_SFunction", "DIC", "DIC_SFunction", "DIC_FMU")
+
+
 #: the NLP programs of the general-NLP slice, by registry name
 NLP_NAMES = ("TP383", "Maratos", "HS99", "LQBlend", "Broydn3d", "Bdqrtic",
              "Catena", "SRosenbr")
@@ -386,8 +391,9 @@ def test_cuda_device_refused_without_card(monkeypatch, case):
     """Asking for the card where there is none raises; nothing carries on
     on the CPU.  With no ``device`` the entry points ask for the card, and
     they build on the CPU only when the caller names it.  The registry
-    holds every program and integrator of the Omuses slice and every NLP
-    program, and each program refuses the card it does not have, as do
+    holds every program and integrator of the Omuses slice, the hosted
+    suite's programs and every NLP program, and each program refuses the
+    card it does not have (before it builds a hosted model), as do
     ``solve_generated`` and ``convert.dense_qp``."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     if case == "nlp":
@@ -410,9 +416,10 @@ def test_cuda_device_refused_without_card(monkeypatch, case):
             PrgDID(kmax=10, device="cuda")
         return
     if case == "omu":
-        assert set(OMU_PROGRAMS) <= set(modules.names("prg_name"))
+        assert set(OMU_PROGRAMS + USER_PROGRAMS) <= \
+            set(modules.names("prg_name"))
         assert {"Euler", "RK4", "IMP"} <= set(modules.names("prg_integrator"))
-        for name in OMU_PROGRAMS:
+        for name in OMU_PROGRAMS + USER_PROGRAMS:
             with pytest.raises(RuntimeError):
                 modules.create("prg_name", name, device="cuda")
             with pytest.raises(RuntimeError):
@@ -447,6 +454,13 @@ def test_port_imports_no_jax():
          "hqp_tpu_torch.parallel.scenarios, hqp_tpu_torch.qp.presolve, "
          "hqp_tpu_torch.native, hqp_tpu_torch.qp.kkt_sparse_host, "
          "hqp_tpu_torch.models.sif, hqp_tpu_torch.ops._build_host; "
+         "import hqp_tpu_torch.omu.dt_opt, hqp_tpu_torch.omu.dynamic_est, "
+         "hqp_tpu_torch.omu.dynamic_opt, hqp_tpu_torch.omu.hosted, "
+         "hqp_tpu_torch.omu.plt_io, hqp_tpu_torch.hxi, "
+         "hqp_tpu_torch.models.hxi_suite; "
+         "from hqp_tpu_torch.utils.registry import modules; "
+         "assert {'DynamicOpt', 'DynamicEst', 'SFunctionOpt', "
+         "'SFunctionEst'} <= set(modules.names('prg_name')); "
          "assert 'jax' not in sys.modules, 'jax imported'"],
         check=True, env=env, cwd=root, timeout=120)
 
@@ -633,8 +647,11 @@ def test_registry_holds_the_exchangeable_modules():
     the host-sparse slice ``qp_mat_solver RedSpBKP`` (the name the
     reference's SparseCallbackKKT takes once ``all_modules`` is imported,
     ROADMAP R4), ``RedSpBKP_host`` and ``SpBKP``, ``sqp_hela SparseBFGS``
-    and ``prg_name SIF``/``CUTE``; a DenseQP program gets DenseKKT from
-    SqpSolver.init."""
+    and ``prg_name SIF``/``CUTE``; since the user-model slice the
+    formulations ``DynamicOpt``, ``DynamicEst``, ``DTOpt``, ``DTEst``, the
+    aliases ``SFunctionOpt``/``SFunctionEst`` and the hosted suite
+    ``DID_SFunction``, ``DIC``, ``DIC_SFunction``, ``DIC_FMU``; a DenseQP
+    program gets DenseKKT from SqpSolver.init."""
     import hqp_tpu_torch.sqp.schittkowski  # noqa: F401
     from hqp_tpu_torch.qp import kkt as tkkt
     want = {"sqp_solver": {"Powell", "Schittkowski"},
@@ -662,6 +679,28 @@ def test_registry_holds_the_exchangeable_modules():
                        TN.PrgMaratos(device=CPU))
     s.init()
     assert isinstance(s.qp, DenseQP) and isinstance(s._kkt_backend, DenseKKT)
+    from hqp_tpu_torch.models import hxi_suite as th
+    from hqp_tpu_torch.omu import dt_opt, dynamic_est, dynamic_opt
+    for name, cls in (("DID_SFunction", th.PrgDIDSFunction),
+                      ("DIC", th.PrgDIC), ("DIC_SFunction", th.PrgDICSFunction),
+                      ("DIC_FMU", th.PrgDICFMU)):
+        assert modules.create("prg_name", name, device=CPU).__class__ is cls
+    model = chip_smoke.user_program("dic_target", CPU).model
+    est = dict(chip_smoke.USER_CASES["DTEst"][3])
+    for name, cls, args, kw in (
+            ("DynamicOpt", dynamic_opt.DynamicOpt, (model,), dict(K=4)),
+            ("SFunctionOpt", dynamic_opt.DynamicOpt, (model,), dict(K=4)),
+            ("DTOpt", dt_opt.DTOpt, (th.HostedModel(th.SFunction(
+                th.demo_sfunction_path("sfun_did"), params=[[0.1]])),),
+             dict(K=4)),
+            ("DynamicEst", dynamic_est.DynamicEst, (model,),
+             dict(ys_meas=np.zeros((5, 2)))),
+            ("SFunctionEst", dynamic_est.DynamicEst, (model,),
+             dict(ys_meas=np.zeros((5, 2)))),
+            ("DTEst", dt_opt.DTEst,
+             (chip_smoke.user_program("DTEst", CPU).model,), est)):
+        prg = modules.create("prg_name", name, *args, **kw, device=CPU)
+        assert prg.__class__ is cls, name
 
 
 # -- the host-sparse slice: the SIF reader ----------------------------------------
@@ -1009,3 +1048,333 @@ def host_sparse_reference_values():
                               s.f_trace[:6]]), flush=True)
     finally:
         powell.SqpPowell.init = init
+
+
+# -- the user-model slice: formulations and hosted models ------------------------
+
+import chip_smoke  # noqa: E402
+import hqp_tpu.models.hxi_suite  # noqa: E402,F401  (registers the programs)
+import hqp_tpu_torch.models.hxi_suite  # noqa: E402,F401  (the same, port)
+import hqp_tpu_torch.omu.dt_opt  # noqa: E402,F401
+import hqp_tpu.omu.dt_opt  # noqa: E402,F401  (registers the formulations)
+from hqp_tpu.hxi.sfunction import SFunction as JSFunction  # noqa: E402
+from hqp_tpu.hxi.sfunction import demo_sfunction_path as jdemo_path  # noqa
+from hqp_tpu.omu.hosted import HostedModel as JHostedModel  # noqa: E402
+from hqp_tpu.omu.integrators import RK4 as JRK4  # noqa: E402
+from hqp_tpu.omu.model import Model as JModel  # noqa: E402
+from hqp_tpu.utils.registry import modules as jmodules  # noqa: E402
+from tests.test_dynamic_opt2 import DIC as JDIC  # noqa: E402
+from hqp_tpu.omu.dt_opt import DTOpt as JDTOpt  # noqa: E402
+from hqp_tpu.omu.dynamic_opt import DynamicOpt as JDynamicOpt  # noqa: E402
+from tests.test_formulations import Decay as JDecay  # noqa: E402
+
+from hqp_tpu_torch.hxi.sfunction import SFunction  # noqa: E402
+from hqp_tpu_torch.hxi.sfunction import demo_sfunction_path  # noqa: E402
+from hqp_tpu_torch.omu.dt_opt import DTOpt  # noqa: E402
+from hqp_tpu_torch.omu.dynamic_opt import DynamicOpt  # noqa: E402
+from hqp_tpu_torch.omu.hosted import HostedModel  # noqa: E402
+from hqp_tpu_torch.omu.model import Model  # noqa: E402
+
+
+
+class JDecayDT(JModel):
+    """The JAX twin of chip_smoke's DecayDT: x+ = (1 - 0.05 p) x."""
+    nx, nu, ny, npar = 1, 0, 1, 1
+    p0 = (0.5,)
+    discrete = True
+
+    def dt_update(self, t, x, u, p):
+        return (1.0 - 0.05 * p[0]) * x
+
+
+def jax_user_program(name):
+    """The JAX package's program of chip_smoke.USER_CASES[name]."""
+    _, prg_name, model, kw, _, _ = chip_smoke.USER_CASES[name]
+    if model is None:
+        return jmodules.create("prg_name", prg_name, **kw)
+    if model[0] == "DIC":
+        m = JDIC()
+    elif model[0] == "Decay":
+        m = JDecay()
+        kw = dict(kw, integrator=JRK4(steps=4))
+    elif model[0] == "DecayDT":
+        m = JDecayDT()
+    else:
+        m = JHostedModel(JSFunction(jdemo_path(model[0]),
+                                    params=[[model[1]]]))
+    return jmodules.create("prg_name", prg_name, m, **kw)
+
+
+def user_solve(name, port):
+    """USER_CASES[name] through SqpPowell in either package (the port on
+    the CPU): (solver, verdict)."""
+    _, _, _, _, skw, sim = chip_smoke.USER_CASES[name]
+    if port:
+        return _run(SqpPowell, chip_smoke.user_program(name, CPU), sim, **skw)
+    return _run(JSqpPowell, jax_user_program(name), sim, **skw)
+
+
+def hosted_reference_values(names=None):
+    """The JAX package's results that chip_smoke.py phase 19 holds the card
+    to, one JSON row each: [case, verdict, f, SQP, IP] of each case of
+    chip_smoke.USER_CASES (REF_HOSTED), then for the estimation cases
+    [case, "confidence", the estimates v[0, :nx], the half-widths]
+    (REF_CONFIDENCE).  Run from the repository root on a CPU host (the two
+    K = 1000 cases take most of the time): ``JAX_PLATFORMS=cpu python -c
+    "import jax; jax.config.update('jax_platforms', 'cpu'); import
+    tests.test_torch_sqp as t; t.hosted_reference_values()"``."""
+    import json
+    for name in names or chip_smoke.USER_CASES:
+        s, res = user_solve(name, port=False)
+        print(json.dumps([name, res, float(s.f), s.iter, s.qp_iters_total]),
+              flush=True)
+        if hasattr(s.prg, "confidence"):
+            _, half = s.prg.confidence(s.x)
+            print(json.dumps([name, "confidence",
+                              np.asarray(s.x)[0, :s.prg.nx].tolist(),
+                              np.asarray(half).tolist()]), flush=True)
+
+
+#: DTOpt over the hosted sfun_did (dt = 0.05) with a quadratic soft bound
+#: on s, whose solve takes one of two courses by rounding (ROADMAP Q3 R16)
+DTOPT_SOFT = dict(x0=[1.0, 0.0], yf_ref=[-1.0, 0.0], K=20, dt=0.05,
+                  u_min=[-20.0], u_max=[20.0], u_weight2=[0.05],
+                  yf_weight2=[100.0, 100.0], y_soft_max=[np.inf, 0.02])
+
+
+def dtopt_soft_witness(ulps=4, seeds=(0, 1, 2, 3)):
+    """Prints [package, seed, verdict, f, SQP, IP] of DTOPT_SOFT through
+    SqpPowell(max_iters=60) in both packages on the CPU: seed 0 from the
+    start setup() gives, every other seed from that start with each entry
+    moved by ``ulps`` units in the last place, up or down by a draw of the
+    seed (f and the QP are then made at the moved start).  ROADMAP Q3 R16's
+    witness; run as hosted_reference_values() is (~4 min)."""
+    import json
+    for port in (False, True):
+        for seed in seeds:
+            if port:
+                prg = DTOpt(HostedModel(SFunction(
+                    demo_sfunction_path("sfun_did"), params=[[0.05]])),
+                    device=CPU, **DTOPT_SOFT)
+                s = SqpPowell(prg, max_iters=60)
+            else:
+                prg = JDTOpt(JHostedModel(JSFunction(
+                    jdemo_path("sfun_did"), params=[[0.05]])), **DTOPT_SOFT)
+                s = JSqpPowell(prg, max_iters=60)
+            s.init()
+            if seed:
+                x = np.asarray(s.x, dtype=np.float64)
+                sign = np.random.default_rng(seed).choice([-1.0, 1.0],
+                                                          x.shape)
+                x = x + ulps * np.spacing(x) * sign
+                s.x = convert.tensor(x, CPU) if port else jnp.asarray(x)
+                s.f, s.qp = s.prg.make_qp(s.x)
+            try:
+                res = s.solve()
+            except (SqpError, JSqpError) as e:
+                res = e.reason
+            print(json.dumps(["port" if port else "reference", seed, res,
+                              float(s.f), s.iter, s.qp_iters_total]),
+                  flush=True)
+
+
+def check_user_solve(name, row=None):
+    """USER_CASES[name] through SqpPowell in both packages: the same
+    verdict, SQP and IP counts, f within 1e-8 relative (1e-14 absolute for
+    an optimum at 0); the reference's result is chip_smoke.REF_HOSTED's row; a hosted program's f is its
+    native twin's within the reference's parity tolerance; an estimation's
+    estimates and confidence half-widths agree within 1e-8 relative, the
+    reference's being REF_CONFIDENCE's.  ``row``: the JAX package's
+    (verdict, f, SQP, IP) of the case where it was solved beforehand (not
+    for an estimation)."""
+    js = None
+    if row is None:
+        js, jres = user_solve(name, port=False)
+        row = (jres, float(js.f), js.iter, js.qp_iters_total)
+    jres, jf, jit, jip = row
+    ts, tres = user_solve(name, port=True)
+    assert tres == jres
+    assert (ts.iter, ts.qp_iters_total) == (jit, jip)
+    _close(float(ts.f), jf, 1e-14, rtol=1e-8)
+    ref = chip_smoke.REF_HOSTED[name]
+    assert (jres, jit, jip) == (ref[0], ref[2], ref[3])
+    _close(jf, ref[1], 0.0, rtol=1e-12)
+    if name in chip_smoke.HOSTED_TWINS:
+        twin, rtol = chip_smoke.HOSTED_TWINS[name]
+        _close(float(ts.f), chip_smoke.REF_HOSTED[twin][1], 0.0, rtol=rtol)
+    if name in chip_smoke.REF_CONFIDENCE:
+        theta, half = chip_smoke.REF_CONFIDENCE[name]
+        assert js is not None, "an estimation needs its reference solver"
+        _, jhalf = js.prg.confidence(js.x)
+        _, thalf = ts.prg.confidence(ts.x)
+        nx = ts.prg.nx
+        _close(ts.x[0, :nx], np.asarray(js.x)[0, :nx], 0.0, rtol=1e-8)
+        _close(thalf, jhalf, 0.0, rtol=1e-8)
+        _close(np.asarray(js.x)[0, :nx], theta, 0.0, rtol=1e-12)
+        _close(jhalf, half, 0.0, rtol=1e-12)
+
+
+#: the user-model solves that both packages run in this file: the
+#: continuous double integrator in torch ops, through sfun_dic and through
+#: the FMU, DynamicOpt on it, the hosted DID without its extra row and DTOpt
+#: through sfun_did: one QP shape (K = 20, nx = 2, nu = 1), so that the
+#: reference compiles its interior point once (the estimations are in
+#: tests/test_torch_kernels.py)
+USER_SOLVES = ("DIC", "DIC_SFunction", "DIC_FMU", "DID_SFunction-20",
+               "dic_target", "DTOpt")
+
+
+@pytest.mark.parametrize("name", USER_SOLVES)
+def test_user_model_solves_match_reference(name):
+    """Each of these cases of chip_smoke.USER_CASES through SqpPowell in
+    both packages: see :func:`check_user_solve`."""
+    check_user_solve(name)
+
+
+#: USER_CASES' small rows in the layouts of tests/test_dynamic_opt2.py.
+#: Each QP shape of these costs the reference its own compile of the
+#: interior point (15-40 s on a CPU host), so the reference solves them in
+#: processes of their own while this file's other tests run
+#: (layout_references)
+PORT_ONLY = ("soft_l1", "u_order1", "du_penalty", "decimation")
+#: USER_CASES' other small rows, which the port solves on the card alone
+#: (chip_smoke.py phase 19): min_time (7 SQP / 62 IP, 30-40 s of the port
+#: on a CPU host; its layout's QP is test_dynamic_opt_qp_matches_reference
+#: [free_time]), the hosted DID-60 (its K = 20 twin is DID_SFunction-20
+#: above) and the native DID-60; the reference solves them beside the
+#: others, and its rows are held to REF_HOSTED's
+REFERENCE_ONLY = ("min_time", "DID_SFunction", "DID")
+#: the reference's solve of one case of chip_smoke.USER_CASES (argv[1]) in
+#: a fresh interpreter on the CPU: prints [verdict, f, SQP, IP]
+_REFERENCE_ROW = """
+import json, os, sys
+os.environ["JAX_PLATFORMS"] = "cpu"
+import jax
+jax.config.update("jax_platforms", "cpu")
+import tests.test_torch_sqp as t
+s, res = t.user_solve(sys.argv[1], port=False)
+print(json.dumps([res, float(s.f), s.iter, s.qp_iters_total]))
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def layout_references(request):
+    """The reference's solves of REFERENCE_ONLY and PORT_ONLY, each in an
+    interpreter of its own started with this file's first test, so that
+    their compiles run on the host's idle cores beside the other tests:
+    {name: Popen} (only the cases whose tests were selected).  Whatever
+    still runs at the end of the file is killed."""
+    selected = {it.callspec.params["name"] for it in request.session.items
+                if it.module is request.module and getattr(
+                    it, "originalname", None) in (
+                    "test_user_model_layouts_match_recorded_reference",
+                    "test_user_model_reference_rows")}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", _REFERENCE_ROW, name], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), stdin=subprocess.DEVNULL,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in REFERENCE_ONLY + PORT_ONLY if name in selected}
+    yield procs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+
+
+@pytest.mark.parametrize("name", PORT_ONLY)
+def test_user_model_layouts_match_recorded_reference(name,
+                                                     layout_references):
+    """DynamicOpt in the layouts of tests/test_dynamic_opt2.py (L1 soft
+    bounds by slack controls, u_order = 1, the du penalty, decimation 3) in
+    both packages, the reference at chip_smoke.REF_HOSTED's row: see
+    :func:`check_user_solve`."""
+    check_user_solve(name, reference_row(layout_references[name]))
+
+
+def reference_row(proc):
+    """The (verdict, f, SQP, IP) that a _REFERENCE_ROW process prints."""
+    out, err = proc.communicate(timeout=900)
+    assert proc.returncode == 0, err
+    return tuple(json.loads(out.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("name", REFERENCE_ONLY)
+def test_user_model_reference_rows(name, layout_references):
+    """The reference's solve of each case of REFERENCE_ONLY gives
+    chip_smoke.REF_HOSTED's row: the verdict and SQP/IP counts, f within
+    1e-12 relative."""
+    res, f, it, ip = reference_row(layout_references[name])
+    ref = chip_smoke.REF_HOSTED[name]
+    assert (res, it, ip) == (ref[0], ref[2], ref[3])
+    _close(f, ref[1], 0.0, rtol=1e-12)
+
+
+class TDIC(Model):
+    """Double integrator in torch ops (tests/test_dynamic_opt2.py's DIC)."""
+    nx, nu, ny, npar = 2, 1, 2, 0
+
+    def ode(self, t, x, u, p):
+        return torch.stack([u[0], x[0]])
+
+
+#: DynamicOpt layouts (and DTOpt's) for the QP comparison: program keywords
+#: on the double integrator (DTOpt: on the hosted sfun_did)
+QP_LAYOUTS = {
+    "soft_penalty": dict(y_soft_max=[np.inf, 0.05], s_quad=1e4,
+                         y_weight1=[0.3, 0.0], u_weight1=[0.2],
+                         u_ref=[0.1]),
+    "soft_slack": dict(y_soft_min=[-0.5, -np.inf], y_soft_max=[np.inf, 0.05],
+                       s_lin=[1.0, 50.0], s_quad=[10.0, 50.0]),
+    "u_order1": dict(u_order=1, du_weight2=[1e-4], du_min=[-5.0],
+                     du_max=[5.0], u_min=[-3.0], u_max=[3.0]),
+    "du_prev": dict(du_weight2=[0.1], u_min=[-3.0], u_init=[0.4]),
+    "free_time": dict(x0=[0.0, 0.0], u_min=[-1.0], u_max=[1.0],
+                      u_init=[0.5], yf_min=[0.0, 1.0], yf_max=[0.0, 1.0],
+                      t_scale=True, t_weight1=1.0),
+    "hard_inherit": dict(y_min=[-2.0, -np.inf], y_max=[2.0, 0.1],
+                         yf_min=[np.nan, -0.5], yf_weight1=[0.1, 0.2]),
+    "decimation": dict(decimation=3, y_max=[np.inf, 0.2],
+                       y_soft_max=[1.5, np.inf], s_lin=[2.0, 0.0]),
+    "periodic": dict(u_order=1, x_periodic=[True, False],
+                     u_periodic=[True], du_weight2=[1e-3]),
+    "dtopt": dict(y_min=[-3.0, -np.inf], y_max=[3.0, 0.1],
+                  y_soft_max=[np.inf, 0.02], u_weight2=[0.05],
+                  yf_weight1=[0.2, 0.0], u_min=[-4.0], u_max=[4.0]),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(QP_LAYOUTS))
+def test_dynamic_opt_qp_matches_reference(layout):
+    """make_qp of DynamicOpt in each layout (u_order 0 and 1, the u_prev
+    state, free final time, soft bounds by penalty and by slack controls,
+    hard path and final bounds with NaN inheriting the path bound,
+    decimation, periodic states and controls) and of DTOpt over the
+    hosted sfun_did at a perturbed iterate: the start, f, Q, c, A, b, the
+    bounds and masks within 1e-12."""
+    kw = dict(x0=[1.0, 0.0], yf_ref=[-1.0, 0.0], yf_weight2=[100.0, 100.0],
+              u_weight2=[0.01], K=6)
+    kw.update(QP_LAYOUTS[layout])
+    if layout == "dtopt":
+        kw.update(dt=0.1)
+        jp = JDTOpt(JHostedModel(JSFunction(jdemo_path("sfun_did"),
+                                            params=[[0.1]])), **kw)
+        tp = DTOpt(HostedModel(SFunction(
+            demo_sfunction_path("sfun_did"), params=[[0.1]])),
+            device=CPU, **kw)
+    else:
+        jp, tp = JDynamicOpt(JDIC(), **kw), DynamicOpt(TDIC(), device=CPU,
+                                                        **kw)
+    assert (tp.nx, tp.nu, tp.mc) == (jp.nx, jp.nu, jp.mc)
+    x0j, x0t = jp.setup(), tp.setup()
+    _close(x0t, x0j, 0.0)
+    rng = np.random.default_rng(sorted(QP_LAYOUTS).index(layout))
+    v = np.asarray(x0j) + 0.1 * rng.standard_normal(x0j.shape)
+    fj, qj = jp.make_qp(jnp.asarray(v))
+    ft, qt = tp.make_qp(convert.tensor(v, CPU))
+    _close(ft, fj, 1e-12)
+    for name in ("Q", "c", "A", "b", "lb", "ub", "C", "d_lo", "d_up",
+                 "var_mask", "con_mask"):
+        ref = np.asarray(getattr(qj, name))
+        _close(getattr(qt, name), ref, 1e-12 * max(
+            np.abs(np.where(np.isfinite(ref), ref, 0)).max(), 1.0), rtol=0)
