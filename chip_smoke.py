@@ -112,7 +112,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      solve the wall time, the host-callback time, the bytes each way per
      SQP iteration, the host syncs per IP iteration and the launches;
      then K1 and K2 on the first inputs the cases gave them at each shape
-     and dtype, against their plain twins.
+     and dtype, against their plain twins;
+ 20. the rest of the Omuses integrators and Mehrotra's non-default knobs,
+     every QP on the card: (a) SqpPowell(PrgCrane(K=50, integrator=
+     Dopri5())), init/simulate/solve, cold then warm; (b) PrgBio under
+     SDIRK, BDF, BDF(krylov=True), GRK4, GRK4Adaptive, IMPAdaptive,
+     BDFAdaptive and BDFVarOrder; (c) PrgDIC(K=20) under RKsuite(method=2),
+     RKF78 and OdeTs (INTEG_CASES); (d) DID-1000 with qp_eps = 1e-7 by
+     Mehrotra with init_method 1, 2, 3, mod_terlaky, gondzio_correctors=2
+     and cheap_predictor over PartitionedKKT (KNOB_CASES): each at the JAX
+     package's verdict and SQP/IP counts with f within 1e-8 (REF_INTEG,
+     REF_KNOBS); per solve the wall time, K1's launches by route and K2's,
+     the host syncs per IP iteration and, for the adaptive integrators,
+     the loop iterations and host reads per make_qp; K1 and K2 launched
+     in every case; then K1 and K2 on the first inputs the cases gave them
+     at each shape and dtype, against their plain twins.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -442,6 +456,108 @@ def user_program(name, device):
         m = HostedModel(SFunction(demo_sfunction_path(model[0]),
                                   params=[[model[1]]]))
     return modules.create("prg_name", prg_name, m, **kw, device=device)
+
+
+#: phase 20's cases, the rest of the integrator family on the Omuses
+#: programs: (program, integrator, its keywords, simulate).  Each runs
+#: SqpPowell(prg, max_iters=100): Crane at K = 50, Bio at its own size (K =
+#: 51), DIC at K = 20.  Bio's adaptive integrators run at looser
+#: tolerances than the default 1e-8, BDF at 2 steps and its Krylov case at
+#: 4 Newton iterations, the same in both packages: the reference solves
+#: each in 4-10 s on a CPU at the defaults, but the port's eager loops cost
+#: a launch-bound iteration each (at 1e-8 Bio's stages need 27-460 loop
+#: iterations a make_qp, and a Krylov corrector's J v products run in
+#: forward mode; PERF.md §6)
+INTEG_CASES = {
+    "Crane-Dopri5": ("Crane", "Dopri5", {}, True),
+    "Bio-SDIRK": ("Bio", "SDIRK", {}, False),
+    "Bio-BDF": ("Bio", "BDF", {"steps": 2}, False),
+    "Bio-BDFKrylov": ("Bio", "BDF", {"steps": 2, "krylov": True,
+                                     "newton_iters": 4}, False),
+    "Bio-GRK4": ("Bio", "GRK4", {}, False),
+    "Bio-GRK4Adaptive": ("Bio", "GRK4Adaptive",
+                         {"rtol": 1e-6, "atol": 1e-6}, False),
+    "Bio-IMPAdaptive": ("Bio", "IMPAdaptive", {"rtol": 1e-3, "atol": 1e-3},
+                        False),
+    "Bio-BDFAdaptive": ("Bio", "BDFAdaptive", {"rtol": 1e-3, "atol": 1e-3},
+                        False),
+    "Bio-BDFVarOrder": ("Bio", "BDFVarOrder", {"rtol": 1e-2, "atol": 1e-2},
+                        False),
+    "DIC-RKsuite2": ("DIC", "RKsuite", {"method": 2}, False),
+    "DIC-RKF78": ("DIC", "RKF78", {}, False),
+    "DIC-OdeTs": ("DIC", "OdeTs", {}, False),
+}
+#: the JAX package's (verdict, f, SQP, IP) of each case of INTEG_CASES on a
+#: CPU host in f64 (integrator_reference_values() in
+#: tests/test_torch_sqp.py)
+REF_INTEG = {
+    "Crane-Dopri5": ("optimal", 11.67512094788542, 6, 61),
+    "Bio-SDIRK": ("optimal", -6.880510079903444, 17, 142),
+    "Bio-BDF": ("optimal", -6.862230540885921, 17, 130),
+    "Bio-BDFKrylov": ("optimal", -6.862230540884154, 17, 130),
+    "Bio-GRK4": ("optimal", -6.880653552734419, 22, 208),
+    "Bio-GRK4Adaptive": ("optimal", -6.880652370340921, 15, 135),
+    "Bio-IMPAdaptive": ("optimal", -6.88065534280171, 18, 145),
+    "Bio-BDFAdaptive": ("optimal", -6.879986261825768, 15, 129),
+    "Bio-BDFVarOrder": ("optimal", -6.859292142912892, 18, 144),
+    "DIC-RKsuite2": ("optimal", 104.00000002084519, 1, 12),
+    "DIC-RKF78": ("optimal", 104.00000002084514, 1, 12),
+    "DIC-OdeTs": ("optimal", 104.00000002084506, 1, 12),
+}
+#: the keywords of Mehrotra(eps=1e-7, max_iters=50) in phase 20 (d)
+KNOB_CASES = {
+    "init_method=1": {"init_method": 1},
+    "init_method=2": {"init_method": 2},
+    "init_method=3": {"init_method": 3},
+    "mod_terlaky": {"mod_terlaky": True},
+    "gondzio_correctors=2": {"gondzio_correctors": 2},
+    "cheap_predictor": {"cheap_predictor": True},
+}
+#: the JAX package's (verdict, f, SQP, IP) of SqpPowell(PrgDID(kmax=1000),
+#: max_iters=50, qp_solver=Mehrotra(eps=1e-7, max_iters=50, **knob)),
+#: init/simulate/solve, on a CPU host in f64 (mehrotra_reference_values()
+#: in tests/test_torch_sqp.py)
+REF_KNOBS = {
+    "init_method=1": ("optimal", 88.91363118637818, 1, 13),
+    "init_method=2": ("optimal", 88.91363697413341, 1, 15),
+    "init_method=3": ("optimal", 88.91366430223138, 1, 15),
+    "mod_terlaky": ("optimal", 88.91361640706438, 1, 30),
+    "gondzio_correctors=2": ("optimal", 88.91366823314047, 1, 21),
+    "cheap_predictor": ("optimal", 88.9136691532432, 1, 28),
+}
+#: f of phase 20's cases against the reference (relative)
+INTEG_F_RTOL = 1e-8
+
+
+def integ_program(name, device):
+    """The port's program of INTEG_CASES[name] on ``device``."""
+    from hqp_tpu_torch.models.crane import PrgCrane
+    from hqp_tpu_torch.models.hxi_suite import PrgDIC
+    from hqp_tpu_torch.models.omu_suite import PrgBio
+    from hqp_tpu_torch.utils.registry import modules
+    prg, integ, kw, _ = INTEG_CASES[name]
+    it = modules.create("prg_integrator", integ, **kw)
+    if prg == "Crane":
+        return PrgCrane(K=50, integrator=it, device=device)
+    if prg == "Bio":
+        return PrgBio(integrator=it, device=device)
+    return PrgDIC(K=20, integrator=it, device=device)
+
+
+def integ_solver(name, device):
+    """SqpPowell(prg, max_iters=100) of INTEG_CASES[name] on ``device``."""
+    from hqp_tpu_torch.sqp.powell import SqpPowell
+    return SqpPowell(integ_program(name, device), max_iters=100)
+
+
+def knob_solver(name, device):
+    """Phase 20 (d)'s solver of DID-1000 with the knob KNOB_CASES[name]."""
+    from hqp_tpu_torch.models.did import PrgDID
+    from hqp_tpu_torch.qp.mehrotra import Mehrotra
+    from hqp_tpu_torch.sqp.powell import SqpPowell
+    return SqpPowell(PrgDID(kmax=1000, device=device), max_iters=50,
+                     qp_solver=Mehrotra(eps=QP_EPS_DID1000, max_iters=50,
+                                        **KNOB_CASES[name]))
 
 
 #: BASELINE config 5 (bench.py:326-377): scenarios, draw scale, seed,
@@ -1208,6 +1324,65 @@ class QPDevices:
         Mehrotra.solve = self._solve
 
 
+class KernelSpy:
+    """While active (a context manager), keeps each kernel's first inputs
+    at every shape and dtype it is given, with the case (``case``) that
+    gave them; :meth:`hold` then holds each kernel against its plain twin
+    on them."""
+
+    case = None
+
+    def __enter__(self):
+        from hqp_tpu_torch.ops import gj_cuda, thomas_cuda
+        self.inputs = {}
+        self._fns = gj_fn, th_fn = (gj_cuda.interior_factor,
+                                    thomas_cuda.thomas_solve)
+
+        def gj_spy(M, B):
+            key = ("K1", tuple(M.shape), B.shape[-1], M.dtype)
+            self.inputs.setdefault(key, (self.case, M.clone(), B.clone()))
+            return gj_fn(M, B)
+
+        def th_spy(D, U, r):
+            key = ("K2", tuple(D.shape), r.shape[-1], D.dtype)
+            self.inputs.setdefault(key, (self.case, D.clone(), U.clone(),
+                                         r.clone()))
+            return th_fn(D, U, r)
+
+        gj_cuda.interior_factor, thomas_cuda.thomas_solve = gj_spy, th_spy
+        return self
+
+    def __exit__(self, *exc):
+        from hqp_tpu_torch.ops import gj_cuda, thomas_cuda
+        gj_cuda.interior_factor, thomas_cuda.thomas_solve = self._fns
+
+    def hold(self, phase):
+        """Each kept input through the kernel (the route its size takes)
+        and through the plain twin: rel err within KERNEL_RTOL."""
+        from hqp_tpu_torch.ops import gj_cuda, thomas_cuda
+        for (k, shape, b, dt), (case, *a) in self.inputs.items():
+            on_card = a[0].device.type == "cuda"
+            if k == "K1":
+                way = gj_cuda.route(shape[-1], b, dt, a[0].device) \
+                    if on_card else "plain"
+                out, ref = gj_cuda.interior_factor(*a), \
+                    gj_cuda.interior_factor_plain(*a)
+                e = max(rel_err(o, r) for o, r in zip(out, ref))
+            else:
+                way = (f"plan {thomas_cuda.plan(shape[-3], shape[-1], dt)}"
+                       if on_card else "plain")
+                e = rel_err(thomas_cuda.thomas_solve(*a),
+                            thomas_cuda.thomas_solve_plain(*a))
+            print(f"[{phase}] {k} on {case}'s first inputs {list(shape)}, "
+                  f"{'b' if k == 'K1' else 'rhs'}={b}, {str(dt)[6:]}, "
+                  f"{way}: rel err {e:.2e}")
+            check(e <= KERNEL_RTOL[dt],
+                  f"{k} disagrees with its twin on {case}'s inputs ({e})")
+        check({"K1", "K2"} <= {k[0] for k in self.inputs},
+              f"phase {phase} gave the kernels no inputs: "
+              f"{list(self.inputs)}")
+
+
 def phase_18(smi, dense):
     """The host-sparse slice on the card (see the module docstring);
     ``dense`` holds phase 16's DenseKKT solves by family."""
@@ -1471,7 +1646,6 @@ def user_drive(name, smi):
 def phase_19(smi):
     """The user-model slice on the card (see the module docstring)."""
     from hqp_tpu_torch.hxi import fmu, sfunction
-    from hqp_tpu_torch.ops import gj_cuda, thomas_cuda
 
     # -- the builds --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1483,58 +1657,19 @@ def phase_19(smi):
     print(f"[19] S-functions and test FMU built in "
           f"{time.perf_counter() - t0:.1f} s ({built}) -> {', '.join(paths)}")
 
-    # keep each kernel's first inputs at every shape and dtype the cases
-    # give it, with the first case that did, for their comparison below
-    inputs = {}
-    gj_fn, th_fn = gj_cuda.interior_factor, thomas_cuda.thomas_solve
-
-    def gj_spy(M, B):
-        key = ("K1", tuple(M.shape), B.shape[-1], M.dtype)
-        inputs.setdefault(key, (name, M.clone(), B.clone()))
-        return gj_fn(M, B)
-
-    def th_spy(D, U, r):
-        key = ("K2", tuple(D.shape), r.shape[-1], D.dtype)
-        inputs.setdefault(key, (name, D.clone(), U.clone(), r.clone()))
-        return th_fn(D, U, r)
-
     fs = {}
-    gj_cuda.interior_factor, thomas_cuda.thomas_solve = gj_spy, th_spy
-    try:
-        with QPDevices() as qd:
-            for name, case in USER_CASES.items():
-                fs[name], launches = user_drive(name, smi)
-                if case[0] == "b":
-                    check(launches["gj"]["tile"] + launches["gj"]["large"]
-                          > 0 and launches["thomas"] > 0,
-                          f"{name} skipped a kernel: {launches}")
-    finally:
-        gj_cuda.interior_factor, thomas_cuda.thomas_solve = gj_fn, th_fn
+    with KernelSpy() as spy, QPDevices() as qd:
+        for name, case in USER_CASES.items():
+            spy.case = name
+            fs[name], launches = user_drive(name, smi)
+            if case[0] == "b":
+                check(launches["gj"]["tile"] + launches["gj"]["large"]
+                      > 0 and launches["thomas"] > 0,
+                      f"{name} skipped a kernel: {launches}")
     print(f"[19] devices of the QP tensors and iterates: "
           f"{sorted(qd.devices)}")
     check(qd.devices == {DEVICE}, f"a QP left the card: {qd.devices}")
-
-    # -- the kernels on the cases' own inputs, against their twins ------------
-    for (k, shape, b, dt), (case, *a) in inputs.items():
-        on_card = a[0].device.type == "cuda"
-        if k == "K1":
-            way = gj_cuda.route(shape[-1], b, dt, a[0].device) if on_card \
-                else "plain"
-            out, ref = gj_cuda.interior_factor(*a), \
-                gj_cuda.interior_factor_plain(*a)
-            e = max(rel_err(o, r) for o, r in zip(out, ref))
-        else:
-            way = (f"plan {thomas_cuda.plan(shape[-3], shape[-1], dt)}"
-                   if on_card else "plain")
-            e = rel_err(thomas_cuda.thomas_solve(*a),
-                        thomas_cuda.thomas_solve_plain(*a))
-        print(f"[19] {k} on {case}'s first inputs {list(shape)}, "
-              f"{'b' if k == 'K1' else 'rhs'}={b}, {str(dt)[6:]}, {way}: "
-              f"rel err {e:.2e}")
-        check(e <= KERNEL_RTOL[dt],
-              f"{k} disagrees with its twin on {case}'s inputs ({e})")
-    check({"K1", "K2"} <= {k[0] for k in inputs},
-          f"phase 19 gave the kernels no inputs: {list(inputs)}")
+    spy.hold(19)
     for name, (twin, rtol) in HOSTED_TWINS.items():
         check(abs(fs[name] - fs[twin]) <= rtol * abs(fs[twin]),
               f"{name}: f = {fs[name]} vs its native twin {twin}'s "
@@ -1548,10 +1683,104 @@ def phase_19(smi):
           + f", DID_SFunction-1000 {f!r} / DID-1000 {REF_F_DID1000!r}")
 
 
+def integ_drive(part, name, make, ref, smi):
+    """One solve of phase 20 on the card, every counter set to 0 just
+    before it: ``make()`` gives the solver, init(), simulate() for the
+    Crane and DID, solve(); held to ``ref`` = (verdict, f, SQP, IP) with f
+    within INTEG_F_RTOL (a failure of both packages within
+    FAILED_F_RTOL).  Prints the wall time, the launches, the host syncs
+    per IP iteration and the adaptive loop's iterations and host reads
+    per make_qp; returns the launches."""
+    from hqp_tpu_torch.docp.program import Docp
+    from hqp_tpu_torch.omu import integrators
+    from hqp_tpu_torch.ops import thomas_cuda
+    from hqp_tpu_torch.sqp.solver import SqpError
+    from hqp_tpu_torch.utils import sync
+    rres, rf, rit, rip = ref
+    per = {"calls": 0, "iters": 0, "reads": 0}
+    make_qp = Docp.make_qp
+
+    def counted(prg, *a, **kw):
+        i, r = integrators.LOOP_ITERS, integrators.LOOP_READS
+        out = make_qp(prg, *a, **kw)
+        per["calls"] += 1
+        per["iters"] += integrators.LOOP_ITERS - i
+        per["reads"] += integrators.LOOP_READS - r
+        return out
+
+    Docp.make_qp = counted
+    reset_counts()
+    integrators.LOOP_ITERS = integrators.LOOP_READS = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = make()
+        s.init()
+        if name.startswith(("Crane", "DID")):
+            s.simulate()
+        try:
+            res = s.solve()
+        except SqpError as e:
+            res = e.reason
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        Docp.make_qp = make_qp
+    launches = {"gj": gj_launches(), "thomas": thomas_cuda.LAUNCHES}
+    f, it, ip = float(s.f), s.iter, s.qp_iters_total
+    n = max(per["calls"], 1)
+    loop = (f", adaptive loop {per['iters'] / n:.1f} iterations and "
+            f"{per['reads'] / n:.1f} host reads per make_qp ("
+            f"{integrators.LOOP_ITERS} iterations in all)"
+            if integrators.LOOP_ITERS else "")
+    print(f"[20{part}] {name}: {res}, f = {f!r} (reference {rf!r}, rel "
+          f"{abs(f - rf) / abs(rf):.1e}), SQP/IP {it} / {ip} (reference "
+          f"{rit} / {rip}), {secs:.3f} s wall, host syncs "
+          f"{sync.COUNT / max(ip, 1):.2f} per IP iteration, launches K1 "
+          f"{launches['gj']} K2 {launches['thomas']}{loop}; on {smi}")
+    check(s.x.device.type == s.qp.Q.device.type == DEVICE,
+          f"{name}: not on the card")
+    check((res, it, ip) == (rres, rit, rip),
+          f"{name}: {res} at {it} / {ip} vs reference {ref}")
+    rtol = INTEG_F_RTOL if rres == "optimal" else FAILED_F_RTOL
+    check(abs(f - rf) <= rtol * abs(rf), f"{name}: f = {f} vs {rf}")
+    check(launches["gj"]["tile"] + launches["gj"]["large"] > 0
+          and launches["thomas"] > 0, f"{name} skipped a kernel: {launches}")
+    return launches
+
+
+def phase_20(smi):
+    """The rest of the integrators and Mehrotra's knobs on the card (see
+    the module docstring)."""
+    with KernelSpy() as spy, QPDevices() as qd:
+        for name, (prg, *_) in INTEG_CASES.items():
+            part = {"Crane": "a", "Bio": "b", "DIC": "c"}[prg]
+            runs = ("cold", "warm") if prg == "Crane" else ("",)
+            for run in runs:
+                spy.case = name
+                integ_drive(part, f"{name} {run}".strip(),
+                            lambda: integ_solver(name, DEVICE),
+                            REF_INTEG[name], smi)
+        for name in KNOB_CASES:
+            spy.case = f"DID-1000 {name}"
+            integ_drive("d", f"DID-1000 {name}",
+                        lambda: knob_solver(name, DEVICE), REF_KNOBS[name],
+                        smi)
+    print(f"[20] devices of the QP tensors and iterates: "
+          f"{sorted(qd.devices)}")
+    check(qd.devices == {DEVICE}, f"a QP left the card: {qd.devices}")
+    spy.hold(20)
+
+
 def main():
     # -- 1. device and toolchain -----------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: torch.cuda.is_available() is False")
+    t_main = time.perf_counter()
+
+    def clock(done):
+        print(f"[t] phases 1-{done} done at "
+              f"{time.perf_counter() - t_main:.1f} s")
     from hqp_tpu_torch.models.did import PrgDID
     from hqp_tpu_torch.ops import _build, gj_cuda, thomas_cuda
     from hqp_tpu_torch.sqp.powell import SqpPowell
@@ -1794,17 +2023,26 @@ def main():
                   f"CranePar's interior: {c['gj']['large']} large K1 "
                   f"launches, not {CRANEPAR_LARGE}: {c}")
             launches["gj_large"] = c["gj"]["large"]
+    clock(12)
 
     dense = phases_13_to_16(smi)
+    clock(16)
 
     # -- 17. the scenario batch --------------------------------------------------
     batch = phase_17(smi)
+    clock(17)
 
     # -- 18. the host-sparse slice ------------------------------------------------
     phase_18(smi, dense)
+    clock(18)
 
     # -- 19. the user-model slice -------------------------------------------------
     phase_19(smi)
+    clock(19)
+
+    # -- 20. the rest of the integrators and Mehrotra's knobs ----------------------
+    phase_20(smi)
+    clock(20)
 
     def row(key, name, replaces):
         t = times[key]

@@ -29,8 +29,9 @@ has an obvious counterpart in the JAX reference package:
   docp/      stage-wise ``Docp`` programs and general ``Nlp`` programs,
              with ``torch.func`` derivatives
   omu/       the Omuses front end: ``OmuProgram`` (continuous-time
-             multistage programs), the fixed-step integrators ``Euler``,
-             ``RK4`` and ``IMP`` (registered under ``prg_integrator``);
+             multistage programs), every integrator of the reference,
+             fixed-step and adaptive (registered under
+             ``prg_integrator``);
              the user's ``Model`` (torch ops) and ``HostedModel`` (an
              S-function or FMU evaluated on the host, one counted copy
              of a batch of stages each way); the formulations

@@ -108,8 +108,15 @@ class PrgBio(OmuProgram):
         v = self.v0 + (x[0] - self.p0) / self.kappa + x[1]
         s = self.cs0 * self.v0 - (x[0] - self.p0) / self.yps \
             + self.cdos * x[1]
-        cs = torch.clamp(s / v, min=0.0)
-        cp = torch.clamp(x[0] / v, min=0.0)
+        # the reference's jnp.maximum, whose derivative splits at a tie:
+        # cp is exactly 0 at the fixed start (x0 = p0 = 0), where
+        # torch.clamp's would be 1 (a Rosenbrock step reads it).  The zero
+        # is v - v so that under forward mode it carries a tangent: an op
+        # of a tangent-carrying tensor with one that carries none takes
+        # PyTorch's slow Python path
+        zero = v - v
+        cs = torch.maximum(s / v, zero)
+        cp = torch.maximum(x[0] / v, zero)
         return cs, cp
 
     def continuous(self, kk, t, x, u, dx):

@@ -3,6 +3,7 @@ scenarios, a hosted model).
 
     python -m hqp_tpu_torch.prof_did1000 [--kmax 1000] [--device cuda]
     python -m hqp_tpu_torch.prof_did1000 --program Crane [--kmax 50]
+    python -m hqp_tpu_torch.prof_did1000 --program CraneDopri5 [--kmax 50]
     python -m hqp_tpu_torch.prof_did1000 --program LQBlend [--kmax 2000]
     python -m hqp_tpu_torch.prof_did1000 --program Scenarios256 [--kmax 256]
     python -m hqp_tpu_torch.prof_did1000 --program SFunctionOpt [--kmax 1000]
@@ -23,7 +24,11 @@ Phases, each printed on lines of its own:
   4. the same solve at the default QP tolerance (1e-9), which is expected
      to end in SqpError("subiters"), with the last QP's complementarity.
 ``--program Crane`` runs phases 2 and 3 on ``PrgCrane(K=kmax)`` (default
-QP tolerance; phases 1 and 4 are DID's).  ``--program LQBlend`` runs them
+QP tolerance; phases 1 and 4 are DID's), ``--program CraneDopri5`` on
+the same program with its stages integrated by the adaptive ``Dopri5``,
+with the integrator's loops split out of make_qp and the line search (the
+values' loop and the Jacobians' loop) and their iterations and host reads
+per make_qp.  ``--program LQBlend`` runs them
 on ``solve_generated``'s solver for ``PrgLQBlend(n=kmax)`` (the general
 path: Nlp, the host-sparse SparseCallbackKKT, the Gerschgorin hela), with
 its layers split out: the copies of Q, C and A to the host, the host's
@@ -63,7 +68,7 @@ from hqp_tpu_torch.hxi.sfunction import SFunction, demo_sfunction_path
 from hqp_tpu_torch.models.crane import PrgCrane
 from hqp_tpu_torch.models.did import PrgDID
 from hqp_tpu_torch.models.nlp_gen import generated_solver
-from hqp_tpu_torch.omu import hosted
+from hqp_tpu_torch.omu import hosted, integrators
 from hqp_tpu_torch.omu.dynamic_opt import DynamicOpt
 from hqp_tpu_torch.parallel import scenarios
 from hqp_tpu_torch.qp import kkt as K_
@@ -220,8 +225,10 @@ def solve_once(kmax, device, program="DID"):
         s = sfunction_opt(kmax, device)
         s.init()
         return s, s.solve()
-    if program == "Crane":
-        s = SqpPowell(PrgCrane(K=kmax, device=device), max_iters=100)
+    if program in ("Crane", "CraneDopri5"):
+        it = integrators.Dopri5() if program == "CraneDopri5" else None
+        s = SqpPowell(PrgCrane(K=kmax, integrator=it, device=device),
+                      max_iters=100)
     elif program == "LQBlend":
         s = generated_solver("lqblend", n=kmax, device=device)
     else:
@@ -258,6 +265,10 @@ def layer_split(kmax, device, program):
     else:
         if program == "SFunctionOpt":
             lt.wrap(hosted._HostFn, "run", "hosted callbacks")
+        if program == "CraneDopri5":
+            lt.wrap(integrators._Loop, "run", "integrator loop (values)")
+            lt.wrap(integrators._Loop, "run_jac",
+                    "integrator loop (Jacobians)")
         lt.wrap(Docp, "simulate", "simulate")
         lt.wrap(Docp, "make_qp", "make_qp")
         lt.wrap(Docp, "update_fbd_qp", "update_fbd_qp")
@@ -265,19 +276,39 @@ def layer_split(kmax, device, program):
         lt.wrap(PartitionedKKT, "solve", "KKT solve")
     lt.wrap(Mehrotra, "cold_start", "IP cold start (excl. KKT)")
     lt.wrap(Mehrotra, "step", "IP step (excl. KKT)")
+    loop = {"make_qp": 0, "iters": 0, "reads": 0}
+    make_qp = Docp.make_qp
+
+    def counted(prg, *a, **kw):
+        i, r = integrators.LOOP_ITERS, integrators.LOOP_READS
+        out = make_qp(prg, *a, **kw)
+        loop["make_qp"] += 1
+        loop["iters"] += integrators.LOOP_ITERS - i
+        loop["reads"] += integrators.LOOP_READS - r
+        return out
+
+    Docp.make_qp = counted
     sync(dev)
     host_sync.COUNT = 0
+    integrators.LOOP_ITERS = integrators.LOOP_READS = 0
     t0 = time.perf_counter()
     try:
         s, res = solve_once(kmax, device, program)
         sync(dev)
     finally:
+        Docp.make_qp = make_qp
         lt.restore()
     wall = (time.perf_counter() - t0) * 1e3
     ip = s.qp_iters_total
     print(f"[2] warm solve: {res}, {wall:.1f} ms wall, SQP {s.iter}, IP "
           f"{ip}, host syncs {host_sync.COUNT / max(ip, 1):.2f} per IP "
           f"iteration")
+    if integrators.LOOP_ITERS:
+        n = max(loop["make_qp"], 1)
+        print(f"[2]   adaptive loop: {loop['iters'] / n:.1f} iterations and "
+              f"{loop['reads'] / n:.1f} host reads per make_qp "
+              f"({loop['make_qp']} make_qp); {integrators.LOOP_ITERS} "
+              f"iterations and {integrators.LOOP_READS} reads in all")
     for label, secs in sorted(lt.excl.items(), key=lambda kv: -kv[1]):
         n = lt.calls[label]
         print(f"[2]   {label}: {secs * 1e3:.1f} ms in {n} calls "
@@ -346,18 +377,19 @@ def default_eps(kmax, device):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--program",
-                    choices=("DID", "Crane", "LQBlend", "Scenarios256",
-                             "SFunctionOpt"),
+                    choices=("DID", "Crane", "CraneDopri5", "LQBlend",
+                             "Scenarios256", "SFunctionOpt"),
                     default="DID")
     ap.add_argument("--kmax", type=int, default=None,
                     help="stages (default 1000 for DID and SFunctionOpt, "
-                    "50 for Crane), "
+                    "50 for Crane and CraneDopri5), "
                     "LQBlend's n (default 2000), or the scenarios of the "
                     "batch (default 256)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     did = args.program == "DID"
-    kmax = args.kmax or {"DID": 1000, "Crane": 50, "LQBlend": 2000,
+    kmax = args.kmax or {"DID": 1000, "Crane": 50, "CraneDopri5": 50,
+                         "LQBlend": 2000,
                          "Scenarios256": 256,
                          "SFunctionOpt": 1000}[args.program]
     if args.device == "cuda":

@@ -127,6 +127,8 @@ def refine(solve_fn, qp, z, w, mask, r1, r2, r3, r4, sol,
     one small tensor (:func:`~hqp_tpu_torch.utils.sync.host`), one at
     entry and one per round, and the common already-accurate case exits
     at the entry test.  A batched QP takes :func:`_refine_batch`."""
+    if max_rounds <= 0:          # no round may run: the entry test is moot
+        return sol
     eps = eps * torch.clamp(rhs_scale(qp, mask, r1, r2, r3, r4), min=1.0)
     e1, e2, e3, e4, res = kkt_residual(qp, z, w, mask, r1, r2, r3, r4, *sol)
     if qp.nb:

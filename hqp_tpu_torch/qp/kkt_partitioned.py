@@ -28,6 +28,7 @@ the B masters through one K2 launch per master solve on [B, P+1, nx, nx].
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -133,6 +134,8 @@ class PartitionedKKT:
         self.L = L
         self.master = master
         self.factor_dtype = factor_dtype
+        #: refinement rounds overriding the factor dtype's (with_refine)
+        self.refine_rounds = None
 
     # -- per-instance resolution by factor dtype ------------------------------
 
@@ -149,7 +152,21 @@ class PartitionedKKT:
         return 3e-7 if self._lu() == torch.float32 else 1e-10
 
     def _refine_rounds(self):
+        if self.refine_rounds is not None:
+            return self.refine_rounds
         return 2 if self._lu() == torch.float32 else 4
+
+    def with_refine(self, rounds: int):
+        """A copy whose solves take ``rounds`` refinement rounds (the same
+        factor layout, so it consumes this instance's factorizations): the
+        IP solver's cheap predictor, which only shapes sigma and the
+        corrector's right-hand side, skips the true-residual gate that the
+        accepted direction pays."""
+        if rounds == self.refine_rounds:
+            return self
+        new = copy.copy(self)
+        new.refine_rounds = rounds
+        return new
 
     def _dual_reg(self):
         return 3e-7 if self._lu() == torch.float32 else 1e-8

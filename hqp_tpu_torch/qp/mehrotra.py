@@ -1,6 +1,6 @@
 """Mehrotra predictor-corrector interior-point QP solver.
 
-Port of the default path of ``hqp_tpu/qp/mehrotra.py`` (reference:
+Port of ``hqp_tpu/qp/mehrotra.py`` (reference:
 hqp/Hqp_IpsMehrotra.C): cold start with unit (z, w) and Mehrotra's
 initial-point shift, the relative KKT test, the infeasibility / slow
 progress / blow-up aborts, the affine predictor with Mehrotra's cubic
@@ -27,9 +27,16 @@ step branch becomes a per-problem select.  Hot starts and the
 equality-only branch stay unbatched (a batch raises
 ``NotImplementedError``).
 
-Not ported yet: ``mod_terlaky``, ``gondzio_correctors > 0``,
-``init_method != 0`` and ``cheap_predictor`` (constructing with them
-raises ``NotImplementedError``).
+The reference's non-default knobs are ported, on one QP and on a batch:
+``init_method`` 1-3 (the cold start's w from the norms of Q, C and d, the
+-z w complementarity right-hand side, and method 3's dz/dw shift),
+``mod_terlaky`` (Terlaky's sigma, clamped at 1, and the pure-centering
+redo when the corrector is blocked: a host branch on one QP, a
+per-problem select on a batch), ``gondzio_correctors`` (that many
+centrality correction solves with the same factorization, each taken per
+problem only where it lengthens the step, with no host read) and
+``cheap_predictor`` (the affine predictor by ``backend.with_refine(0)``
+where the backend has it, as ``PartitionedKKT`` does).
 """
 
 from __future__ import annotations
@@ -86,22 +93,23 @@ class Mehrotra:
     """Mehrotra predictor-corrector IP solver over an exchangeable backend.
 
     Defaults as in the reference package: Mehrotra's cubic centering (not
-    the Terlaky modification) and no Gondzio correctors."""
+    the Terlaky modification), no Gondzio correctors, the plain cold
+    start and a refined predictor."""
 
     def __init__(self, backend=None, eps=1e-9, max_iters=50, max_warm_iters=25,
                  gammaf=0.01, init_method=0, mod_terlaky=False,
                  gondzio_correctors=0, cheap_predictor=False):
-        if init_method != 0 or mod_terlaky or gondzio_correctors or \
-                cheap_predictor:
-            raise NotImplementedError(
-                "Mehrotra: only the default path is ported (init_method=0, "
-                "mod_terlaky=False, gondzio_correctors=0, "
-                "cheap_predictor=False)")
         self.backend = backend
         self.eps = eps
         self.max_iters = max_iters
         self.max_warm_iters = max_warm_iters
         self.gammaf = gammaf
+        self.init_method = init_method
+        self.mod_terlaky = mod_terlaky
+        self.gondzio_correctors = gondzio_correctors
+        #: solve the affine predictor without the true-residual refinement
+        #: (backend.with_refine(0)); the corrector keeps the full gate
+        self.cheap_predictor = cheap_predictor
 
     def with_backend(self, backend):
         """A solver with ``backend`` bound (a copy if it differs)."""
@@ -166,15 +174,24 @@ class Mehrotra:
         m = torch.clamp(mk.count(mask, nb), min=1.0)
         ones = mk.where(mask, mk.fill(mask, 1.0), 1.0)
         z = w = ones
+        if self.init_method in (1, 2):
+            nQ, nC, nd = _norm_Q(qp), _norm_C(qp), _norm_d(qp)
+            val = nd * nQ / nC if self.init_method == 1 else nC / nd / nQ
+            w = mk.where(mask, mk.scale(val, ones), 1.0)
 
         r1 = torch.where(qp.x_mask(), qp.c, 0.0)
         r2 = mk.scale(-1.0, qp.eq_offsets())
         r3 = mk.where(mask, mk.scale(-1.0, qp.ineq_offsets()), 0.0)
-        r4 = mk.fill(mask, 0.0)
+        if self.init_method:
+            r4 = mk.where(mask, mk.tmap(lambda a, b: -a * b, z, w), 0.0)
+        else:
+            r4 = mk.fill(mask, 0.0)
 
         fac = self.backend.factor(qp, z, w, mask)
         dx, dy, dz, dw = self.backend.solve(fac, qp, z, w, mask,
                                             r1, r2, r3, r4)
+        if self.init_method == 3:
+            dz, dw = mk.add(dz, z), mk.add(dw, w)
 
         # Mehrotra's initial point shift (C:299-315)
         dz = _unzero(dz, mask, nb)
@@ -287,27 +304,78 @@ class Mehrotra:
 
         # factorization + affine predictor (C:524-562)
         fac = self.backend.factor(qp, z, w, mask)
-        dxa, dya, dza, dwa = self.backend.solve(
+        pred_be = self.backend.with_refine(0) \
+            if self.cheap_predictor and \
+            hasattr(self.backend, "with_refine") else self.backend
+        dxa, dya, dza, dwa = pred_be.solve(
             fac, qp, z, w, mask, r1, r2, r3, r4)
         alpha_aff = torch.clamp(
             torch.minimum(mk.ratio_min(z, dza, mask, nb),
                           mk.ratio_min(w, dwa, mask, nb)), 0.0, 1.0)
 
-        # Mehrotra's original centering (C:578-583)
-        zp = mk.where(mask, mk.axpy(alpha_aff, dza, z), 0.0)
-        wp = mk.where(mask, mk.axpy(alpha_aff, dwa, w), 0.0)
-        mu_aff = mk.inner(zp, wp, mask, nb) / m
-        sigma = (mu_aff / mu) ** 3.0
-        smm = sigma * mu
-        r4c = mk.where(
-            mask,
-            mk.tmap(lambda zi, wi, a, b: -(zi * wi + a * b - mk.bc(smm, zi)),
-                    z, w, dza, dwa), 0.0)
-        dx, dy, dz, dw = self.backend.solve(fac, qp, z, w, mask,
-                                            r1, r2, r3, r4c)
+        def corrector(sig):
+            smm = sig * mu
+            r4c = mk.where(
+                mask,
+                mk.tmap(lambda zi, wi, a, b:
+                        -(zi * wi + a * b - mk.bc(smm, zi)),
+                        z, w, dza, dwa), 0.0)
+            return self.backend.solve(fac, qp, z, w, mask, r1, r2, r3, r4c)
+
+        if self.mod_terlaky:
+            # Terlaky centering (C:584-591), sigma clamped at 1 as the
+            # reference clamps it (the SIGMA_CAP rows can inflate t)
+            gamma = 1.0e-4 ** 0.25
+            t = mk.vmax(mk.tmap(
+                lambda a, b, zi, wi: torch.where(a * b > 0.0,
+                                                 a * b / zi / wi, 0.0),
+                dza, dwa, z, w), mask, nb)
+            t = torch.clamp(t, min=0.0)
+            sigma = torch.clamp(gamma * (t + 1.0 - alpha_aff)
+                                / (1.0 - gamma), max=1.0)
+            dirs = corrector(sigma)
+            alpha_corr = torch.clamp(
+                torch.minimum(mk.ratio_min(z, dirs[2], mask, nb),
+                              mk.ratio_min(w, dirs[3], mask, nb)), 0.0, 1.0)
+            # pure centering when the corrector is blocked (C:604-623):
+            # the reference's branch, per problem on a batch
+            redo = (alpha_aff < 0.1) | \
+                (alpha_corr < gamma * gamma / 2.0 / m / m)
+            if host(redo.any() if nb else redo):
+                dirs = mk.sel(redo, corrector(gamma / (1.0 - gamma)), dirs)
+            dx, dy, dz, dw = dirs
+        else:
+            # Mehrotra's original centering (C:578-583)
+            zp = mk.where(mask, mk.axpy(alpha_aff, dza, z), 0.0)
+            wp = mk.where(mask, mk.axpy(alpha_aff, dwa, w), 0.0)
+            mu_aff = mk.inner(zp, wp, mask, nb) / m
+            sigma = (mu_aff / mu) ** 3.0
+            dx, dy, dz, dw = corrector(sigma)
 
         # Mehrotra's adaptive step size (C:625-669)
         alpha = self._adaptive_alpha(z, w, dz, dw, mask, m, nb)
+
+        # Gondzio's centrality correctors (beyond the reference; Gondzio
+        # 1996): push the trial products into [0.1, 10] sigma mu by
+        # correction solves with the same factorization, each taken per
+        # problem only where it lengthens the step
+        mu_t = torch.clamp(sigma * mu, min=1e-30)
+        for _ in range(self.gondzio_correctors):
+            abar = torch.clamp(2.0 * alpha + 0.1, max=1.0)
+            zt = mk.where(mask, mk.axpy(abar, dz, z), 1.0)
+            wt = mk.where(mask, mk.axpy(abar, dw, w), 1.0)
+            pr = mk.tmap(lambda a, b: a * b, zt, wt)
+            tgt = mk.tmap(lambda p: torch.clamp(p, 0.1 * mk.bc(mu_t, p),
+                                                10.0 * mk.bc(mu_t, p)), pr)
+            r4g = mk.where(mask, mk.sub(tgt, pr), 0.0)
+            cx, cy, cz, cw = self.backend.solve(
+                fac, qp, z, w, mask, torch.zeros_like(r1), mk.fill(r2, 0.0),
+                mk.fill(r3, 0.0), r4g)
+            nd = (dx + cx, mk.add(dy, cy), mk.add(dz, cz), mk.add(dw, cw))
+            na = self._adaptive_alpha(z, w, nd[2], nd[3], mask, m, nb)
+            take = na > alpha
+            dx, dy, dz, dw = mk.sel(take, nd, (dx, dy, dz, dw))
+            alpha = torch.where(take, na, alpha)
 
         x_n = x + mk.bc(alpha, x) * dx
         y_n = mk.axpy(alpha, dy, y)
@@ -471,3 +539,16 @@ def _unzero(t, mask, nb=0):
     """If a direction is identically zero, nudge it (C:299-302)."""
     n = mk.norm_inf(t, mask, nb)
     return mk.tmap(lambda a: torch.where(mk.bc(n == 0.0, a), 1.0e-10, a), t)
+
+
+def _norm_Q(qp):
+    return torch.clamp(mk.amax_all(qp.Q.abs(), qp.nb), min=1e-10)
+
+
+def _norm_C(qp):
+    return torch.clamp(mk.amax_all(qp.C.abs(), qp.nb), min=1e-10)
+
+
+def _norm_d(qp):
+    return torch.clamp(mk.norm_inf(qp.ineq_offsets(), qp.ineq_mask(), qp.nb),
+                       min=1e-10)

@@ -36,7 +36,20 @@ from hqp_tpu_torch.models.omu_suite import PrgBio
 from hqp_tpu_torch.omu import integrators as tint
 from hqp_tpu_torch.ops import blocktri, gj_cuda, smalllin, thomas_cuda
 from hqp_tpu_torch.sqp.powell import SqpPowell
+from hqp_tpu_torch.utils.registry import modules as modules_t
 
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's tests run on one intra-op thread: their tensors are
+    small, and the suite's workers share the host's cores, where torch's
+    default of a thread per core oversubscribes them (the tests of this
+    file ran several times slower that way)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 def _t(a, dtype=torch.float64):
     return torch.as_tensor(np.asarray(a), dtype=dtype)
@@ -341,6 +354,182 @@ def test_sqp_crane50_matches_reference():
     assert jres == tres == "optimal"
     assert (ts.iter, ts.qp_iters_total) == (js.iter, js.qp_iters_total)
     np.testing.assert_allclose(float(ts.f), float(js.f), rtol=1e-9, atol=0)
+
+
+# -- the rest of the integrator family --------------------------------------------
+
+#: the test problems of tests/test_integrators2.py with a rate per sample
+#: period kk, so that the three stages take different numbers of steps:
+#: the oscillator, the stiff relaxation onto cos(t) and the index-1 DAE
+#: x0' = -w x0 + x1 + u, 0 = x1 - x0^2
+_RATE = {"osc": (1.0, 3.0, 6.0), "stiff": (50.0, 200.0, 1000.0),
+         "dae": (1.0, 2.0, 4.0)}
+_NX = {"osc": 2, "stiff": 1, "dae": 2}
+
+
+def _problem_jax(prob):
+    rate = jnp.asarray(_RATE[prob])
+
+    def F(kk, t, x, u, dx):
+        w = rate[kk]
+        if prob == "osc":
+            return jnp.array([x[1] - dx[0], -w * w * x[0] + u[0] - dx[1]])
+        if prob == "stiff":
+            return jnp.array([-w * (x[0] - jnp.cos(t)) + u[0] - dx[0]])
+        return jnp.array([-w * x[0] + x[1] + u[0] - dx[0],
+                          x[1] - x[0] * x[0]])
+    return F
+
+
+def _problem_torch(prob):
+    from hqp_tpu_torch.omu.program import at
+    rate = torch.tensor(_RATE[prob], dtype=torch.float64)
+
+    def F(kk, t, x, u, dx):
+        w = at(rate, kk)
+        if prob == "osc":
+            return torch.stack([x[1] - dx[0], -w * w * x[0] + u[0] - dx[1]])
+        if prob == "stiff":
+            return torch.stack([-w * (x[0] - torch.cos(t)) + u[0] - dx[0]])
+        return torch.stack([-w * x[0] + x[1] + u[0] - dx[0],
+                            x[1] - x[0] * x[0]])
+    return F
+
+
+#: each integrator of the slice (keywords for both packages) with the
+#: problems it runs: the explicit ones the oscillator, the stiff
+#: (xdot-form) ones the relaxation too, the DAE solvers all three;
+#: tolerances looser than the default where the port's eager loop would
+#: take hundreds of iterations
+NEW_INTEGRATORS = {
+    "Dopri5": ({}, ("osc",)),
+    "RKsuite": ({"method": 2, "rtol": 1e-6, "atol": 1e-6}, ("osc",)),
+    "RKF78": ({}, ("osc",)),
+    "OdeTs": ({"order": 6, "steps": 2}, ("osc",)),
+    "GRK4": ({"steps": 3}, ("osc", "stiff")),
+    "GRK4Adaptive": ({"rtol": 1e-6, "atol": 1e-6}, ("osc", "stiff")),
+    "IMPAdaptive": ({"rtol": 1e-4, "atol": 1e-4}, ("osc", "stiff")),
+    "SDIRK": ({"steps": 2}, ("osc", "stiff", "dae")),
+    "BDF": ({"steps": 3}, ("osc", "stiff", "dae")),
+    "DASPK": ({"steps": 2, "krylov": True}, ("osc", "stiff", "dae")),
+    "BDFAdaptive": ({"rtol": 1e-3, "atol": 1e-3}, ("osc", "stiff", "dae")),
+    "BDFVarOrder": ({"rtol": 1e-3, "atol": 1e-3}, ("osc", "stiff", "dae")),
+}
+
+
+def _relmax(out, ref):
+    ref = np.asarray(ref)
+    return float(np.max(np.abs(np.asarray(out) - ref))
+                 / max(np.max(np.abs(ref)), 1e-300))
+
+
+def _stage_inputs(prob, seed):
+    """Three stages (kk = 0, 1, 2) of seeded starting points and controls
+    over [0.3 kk, 0.3 kk + 0.5]; the DAE's start is consistent."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(0.2, 0.8, (3, _NX[prob]))
+    if prob == "dae":
+        X[:, 1] = X[:, 0] ** 2
+    U = rng.standard_normal((3, 1))
+    T0 = np.array([0.0, 0.3, 0.6])
+    return X, U, T0, np.arange(3)
+
+
+@pytest.mark.parametrize("name,prob", [
+    (n, p) for n, (_, probs) in NEW_INTEGRATORS.items() for p in probs])
+def test_new_integrator_matches_reference(name, prob):
+    """One sample period of each integrator of the slice (registered
+    name; DASPK is BDF with the Newton-Krylov corrector) for three stages
+    under the stage vmap, and its jacfwd sensitivities to (x, u), as
+    Docp.eval_derivs runs them: values within 1e-12 and the Jacobian
+    [dx/dx0, dx/du] within 1e-10 of the reference's (relative to the
+    largest entry of each).  The
+    adaptive loops run every stage in one loop whose stages stop at
+    different iterations."""
+    from hqp_tpu.utils.registry import modules as jmodules
+    kw, _ = NEW_INTEGRATORS[name]
+    ij = jmodules.create("prg_integrator", name, **kw)
+    it = modules_t.create("prg_integrator", name, **kw)
+    Fj, Ft = _problem_jax(prob), _problem_torch(prob)
+    X, U, T0, KK = _stage_inputs(prob, seed=len(name))
+
+    def fj(x, u, t0, kk):
+        return ij.solve(Fj, kk, t0, t0 + 0.5, x, u)
+
+    def ft(x, u, t0, kk):
+        return it.solve(Ft, kk, t0, t0 + 0.5, x, u)
+
+    jargs = (jnp.asarray(X), jnp.asarray(U), jnp.asarray(T0),
+             jnp.asarray(KK))
+    targs = (_t(X), _t(U), _t(T0), torch.as_tensor(KK))
+    ref = jax.vmap(fj)(*jargs)
+    out = torch.func.vmap(ft)(*targs)
+    assert np.isfinite(np.asarray(ref)).all()
+    assert _relmax(out.numpy(), ref) <= 1e-12
+    jref = jax.vmap(jax.jacfwd(fj, argnums=(0, 1)))(*jargs)
+    jout = torch.func.vmap(torch.func.jacfwd(ft, argnums=(0, 1)))(*targs)
+    assert _relmax(torch.cat(jout, dim=-1).numpy(),
+                   np.concatenate(jref, axis=-1)) <= 1e-10
+
+
+def test_adaptive_stages_take_their_own_steps():
+    """The stages of one batched loop keep their own step sequences: each
+    stage of the batched BDFVarOrder solve equals its unbatched solve to
+    the last bit, and they took different numbers of steps (solve_stats,
+    the reference's own counters) in both packages."""
+    kw = NEW_INTEGRATORS["BDFVarOrder"][0]
+    ij, it = jint.BDFVarOrder(**kw), tint.BDFVarOrder(**kw)
+    Fj, Ft = _problem_jax("stiff"), _problem_torch("stiff")
+    X, U, T0, KK = _stage_inputs("stiff", seed=0)
+    out = torch.func.vmap(lambda x, u, t0, kk: it.solve(
+        Ft, kk, t0, t0 + 0.5, x, u))(_t(X), _t(U), _t(T0),
+                                     torch.as_tensor(KK))
+    steps = []
+    for k in range(3):
+        xs, n, order = it.solve_stats(Ft, k, T0[k], T0[k] + 0.5, _t(X[k]),
+                                      _t(U[k]))
+        jx, jn, jorder = ij.solve_stats(Fj, k, T0[k], T0[k] + 0.5,
+                                        jnp.asarray(X[k]), jnp.asarray(U[k]))
+        assert torch.equal(out[k], xs)
+        assert (n, order) == (jn, jorder)
+        assert _relmax(xs.numpy(), jx) <= 1e-12
+        steps.append(n)
+    assert len(set(steps)) == 3, steps
+
+
+def test_truncated_loop_gives_nan():
+    """An adaptive loop that runs out of max_steps returns NaN in both
+    packages (the SQP treats it as a failed model evaluation); the stage
+    that finishes in time keeps its value."""
+    Fj, Ft = _problem_jax("osc"), _problem_torch("osc")
+    X, U, T0, KK = _stage_inputs("osc", seed=1)
+    ij, it = jint.Dopri5(max_steps=12), tint.Dopri5(max_steps=12)
+    ref = np.asarray(jax.vmap(lambda x, u, t0, kk: ij.solve(
+        Fj, kk, t0, t0 + 0.5, x, u))(jnp.asarray(X), jnp.asarray(U),
+                                     jnp.asarray(T0), jnp.asarray(KK)))
+    out = torch.func.vmap(lambda x, u, t0, kk: it.solve(
+        Ft, kk, t0, t0 + 0.5, x, u))(_t(X), _t(U), _t(T0),
+                                     torch.as_tensor(KK)).numpy()
+    assert np.isnan(ref).any() and np.isfinite(ref).any()
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
+    ok = np.isfinite(ref)
+    np.testing.assert_allclose(out[ok], ref[ok], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("restart", [20, 3])
+def test_gmres_matches_reference(restart):
+    """The port's GMRES against jax.scipy.sparse.linalg.gmres as the
+    reference's Newton-Krylov corrector calls it (tol = atol = 0, two
+    restarts) on a seeded 8x8 system, with the Krylov space the whole
+    space (restart 20 -> 8) and with three vectors a restart."""
+    import jax.scipy.sparse.linalg as jsla
+    rng = np.random.default_rng(restart)
+    A = rng.standard_normal((8, 8)) + 3.0 * np.eye(8)
+    b = rng.standard_normal(8)
+    ref, _ = jsla.gmres(lambda v: jnp.asarray(A) @ v, jnp.asarray(b),
+                        restart=restart, maxiter=2, tol=0.0, atol=0.0)
+    out = tint.gmres(lambda v: _t(A) @ v, _t(b), restart, 2)
+    assert _relmax(out.numpy(), ref) <= 1e-12
 
 
 def test_kernel_wrappers_refuse_bad_input():

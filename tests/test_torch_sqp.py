@@ -44,6 +44,18 @@ _G = ("bl", "bu", "gl", "gu")
 CPU = "cpu"
 
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's tests run on one intra-op thread: their tensors are
+    small, and the suite's workers share the host's cores, where torch's
+    default of a thread per core oversubscribes them (the tests of this
+    file ran several times slower that way)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 def _c(a):
     return convert.tensor(a, device=CPU)
 
@@ -650,7 +662,8 @@ def test_registry_holds_the_exchangeable_modules():
     and ``prg_name SIF``/``CUTE``; since the user-model slice the
     formulations ``DynamicOpt``, ``DynamicEst``, ``DTOpt``, ``DTEst``, the
     aliases ``SFunctionOpt``/``SFunctionEst`` and the hosted suite
-    ``DID_SFunction``, ``DIC``, ``DIC_SFunction``, ``DIC_FMU``; a DenseQP
+    ``DID_SFunction``, ``DIC``, ``DIC_SFunction``, ``DIC_FMU``; since the
+    integrator slice every ``prg_integrator`` of the reference; a DenseQP
     program gets DenseKKT from SqpSolver.init."""
     import hqp_tpu_torch.sqp.schittkowski  # noqa: F401
     from hqp_tpu_torch.qp import kkt as tkkt
@@ -663,6 +676,15 @@ def test_registry_holds_the_exchangeable_modules():
                               "SpBKP"}}
     for slot, names in want.items():
         assert set(modules.names(slot)) == names, slot
+    # the integrators: the reference's 15 names (DASPK an alias of BDF),
+    # each the port's class of the reference's class name
+    import hqp_tpu.omu.integrators  # noqa: F401
+    names = set(jmodules.names("prg_integrator"))
+    assert set(modules.names("prg_integrator")) == names
+    assert len(names) == 15 and "DASPK" in names
+    for name in names:
+        assert type(modules.create("prg_integrator", name)).__name__ == \
+            type(jmodules.create("prg_integrator", name)).__name__, name
     for slot, name, cls in (
             ("qp_mat_solver", "RedSpBKP", tsh.SparseCallbackKKT),
             ("qp_mat_solver", "RedSpBKP_host", tsh.SparseHostKKT),
@@ -1378,3 +1400,166 @@ def test_dynamic_opt_qp_matches_reference(layout):
         ref = np.asarray(getattr(qj, name))
         _close(getattr(qt, name), ref, 1e-12 * max(
             np.abs(np.where(np.isfinite(ref), ref, 0)).max(), 1.0), rtol=0)
+
+
+# -- the rest of the integrators and Mehrotra's knobs ------------------------------
+
+from hqp_tpu.models.hxi_suite import PrgDIC as JPrgDIC  # noqa: E402
+from hqp_tpu.omu import integrators as jint  # noqa: E402
+from hqp_tpu.qp.mehrotra import Mehrotra as JMehrotra  # noqa: E402
+
+from hqp_tpu_torch.omu import integrators as tint  # noqa: E402
+from hqp_tpu_torch.parallel.scenarios import batched_qp  # noqa: E402
+
+
+def jax_integ_program(name):
+    """The JAX package's program of chip_smoke.INTEG_CASES[name]."""
+    prg, integ, kw, _ = chip_smoke.INTEG_CASES[name]
+    it = jmodules.create("prg_integrator", integ, **kw)
+    if prg == "Crane":
+        return JPrgCrane(K=50, integrator=it)
+    if prg == "Bio":
+        return JS.PrgBio(integrator=it)
+    return JPrgDIC(K=20, integrator=it)
+
+
+def integrator_reference_values(names=None):
+    """The JAX package's results that chip_smoke.py phase 20 (a)-(c) holds
+    the card to (REF_INTEG), one JSON row each: [case, verdict, f, SQP,
+    IP] of each case of chip_smoke.INTEG_CASES by SqpPowell(prg,
+    max_iters=100), init(), [simulate()], solve().  Run from the
+    repository root on a CPU host (about 2 minutes): ``JAX_PLATFORMS=cpu
+    python -c "import jax; jax.config.update('jax_platforms', 'cpu');
+    import tests.test_torch_sqp as t; t.integrator_reference_values()"``."""
+    for name in names or chip_smoke.INTEG_CASES:
+        s, res = _run(JSqpPowell, jax_integ_program(name),
+                      chip_smoke.INTEG_CASES[name][3], max_iters=100)
+        print(json.dumps([name, res, float(s.f), s.iter, s.qp_iters_total]),
+              flush=True)
+
+
+def mehrotra_reference_values(names=None):
+    """The JAX package's results that chip_smoke.py phase 20 (d) holds the
+    card to (REF_KNOBS), one JSON row each: [knob, verdict, f, SQP, IP] of
+    SqpPowell(PrgDID(kmax=1000), max_iters=50, qp_solver=Mehrotra(eps=
+    1e-7, max_iters=50, **knob)), init(), simulate(), solve() for each
+    knob of chip_smoke.KNOB_CASES.  Run as
+    :func:`integrator_reference_values` (about 4 minutes)."""
+    for name in names or chip_smoke.KNOB_CASES:
+        slv = JMehrotra(eps=chip_smoke.QP_EPS_DID1000, max_iters=50,
+                        **chip_smoke.KNOB_CASES[name])
+        s, res = _run(JSqpPowell, JPrgDID(kmax=1000), True, max_iters=50,
+                      qp_solver=slv)
+        print(json.dumps([name, res, float(s.f), s.iter, s.qp_iters_total]),
+              flush=True)
+
+
+@pytest.fixture(scope="module")
+def did60_first_qp():
+    """The JAX package's first QP of SqpPowell(PrgDID(kmax=60)) and its
+    IP state (the QP of test_mehrotra_first_qp_matches_reference's kind,
+    with the path constraint)."""
+    js = JSqpPowell(JPrgDID(kmax=60), max_iters=50)
+    js.init()
+    js.qp_update()
+    return js.qp, js.ip_state
+
+
+@pytest.mark.parametrize("knob", sorted(chip_smoke.KNOB_CASES))
+def test_mehrotra_knob_matches_reference(did60_first_qp, knob):
+    """Each non-default knob of Mehrotra (those of chip_smoke phase 20
+    (d)) on DID-60's first QP against the reference's Mehrotra with the
+    same knob: optimal at the same IP count, x within 1e-9."""
+    jqp, jst = did60_first_qp
+    kw = chip_smoke.KNOB_CASES[knob]
+    ref = JMehrotra(eps=1e-9, max_iters=50, **kw).with_backend(
+        JPartitionedKKT()).solve(jqp, jst)
+    qp = convert.stage_qp(jqp, CPU)
+    m = Mehrotra(eps=1e-9, max_iters=50, **kw).with_backend(PartitionedKKT())
+    out = m.solve(qp, m.init_state(qp))
+    assert int(out.result) == int(ref.result) == 0
+    assert int(out.iter) == int(ref.iter)
+    _close(out.x, ref.x, 1e-9)
+
+
+#: the knobs in the combinations the batch test runs (every knob in one,
+#: the three together in the last)
+KNOB_BATCHES = {
+    "init1-terlaky": dict(init_method=1, mod_terlaky=True),
+    "init2-gondzio": dict(init_method=2, gondzio_correctors=2),
+    "init3-cheap": dict(init_method=3, cheap_predictor=True),
+    "terlaky-gondzio-cheap": dict(mod_terlaky=True, gondzio_correctors=2,
+                                  cheap_predictor=True),
+}
+
+
+@pytest.fixture(scope="module")
+def knob_batch():
+    """Four scenario QPs of PrgDID(kmax=20, with_cns=False) (batched_qp's
+    draws of seed 0 at scale 1e-2 around the start, Q = 1e-2 I) as one
+    batched StageQP and one by one."""
+    prg = PrgDID(kmax=20, with_cns=False, device=CPU)
+    v = batched_qp(prg, prg.setup(), 4, scale=1e-2, seed=0)
+    Q = (1e-2 * torch.eye(prg.nv, dtype=torch.float64)).expand(
+        4, prg.K + 1, prg.nv, prg.nv)
+    _, qpb = prg.make_qp_batch(v, Q)
+    return qpb, [prg.make_qp(v[b], Q[b])[1] for b in range(4)]
+
+
+@pytest.mark.parametrize("combo", sorted(KNOB_BATCHES))
+def test_mehrotra_knobs_batch_equals_unbatched(knob_batch, combo):
+    """Mehrotra with the knobs on a batch of four scenario QPs: each
+    problem optimal at the IP count of its own unbatched solve, x within
+    1e-10 of it (the Terlaky redo and the Gondzio rounds are per-problem
+    selects on the batch)."""
+    qpb, qps = knob_batch
+    m = Mehrotra(eps=1e-9, **KNOB_BATCHES[combo]).with_backend(
+        PartitionedKKT())
+    outb = m.solve(qpb, m.init_state(qpb))
+    for b, qp in enumerate(qps):
+        one = m.solve(qp, m.init_state(qp))
+        assert int(outb.result[b]) == int(one.result) == 0
+        assert int(outb.iter[b]) == int(one.iter)
+        _close(outb.x[b], one.x, 1e-10)
+
+
+def test_odets_taylor_terms_match_jet():
+    """OdeTs's Taylor terms at order 8 on a nonlinear model (van der Pol)
+    against the reference's recursion through jax.experimental.jet, which
+    reads and returns its series as derivatives: within 1e-12."""
+    from jax.experimental.jet import jet
+
+    def fj(z):
+        return jnp.array([z[1], 1.5 * (1.0 - z[0] * z[0]) * z[1] - z[0]])
+
+    def ft(z):
+        return torch.stack([z[1], 1.5 * (1.0 - z[0] * z[0]) * z[1] - z[0]])
+
+    xs = np.array([0.7, -0.4])
+    cs = [fj(jnp.asarray(xs))]
+    for k in range(1, 8):
+        _, series = jet(fj, (jnp.asarray(xs),),
+                        ((*cs, jnp.zeros_like(cs[0])),))
+        cs.append(series[k - 1] / (k + 1))
+    out = tint._taylor_terms(ft, _c(xs), 8)
+    assert len(out) == 8
+    for o, r in zip(out, cs):
+        _close(o, r, 1e-12 * np.abs(np.asarray(r)).max(), rtol=0)
+
+
+@pytest.mark.parametrize("integ", ["SDIRK", "Dopri5"])
+def test_sqp_dic_matches_reference(integ):
+    """The slice as a whole: PrgDIC(K=8) through SqpPowell -> Mehrotra ->
+    PartitionedKKT with its stages integrated by SDIRK (steps 1, six
+    Newton iterations, as tests/test_integrators2.py runs it) or by the
+    adaptive Dopri5: the same result, SQP and IP iterations, f within
+    1e-8 relative."""
+    from hqp_tpu_torch.models.hxi_suite import PrgDIC
+    kw = {"SDIRK": dict(steps=1, newton_iters=6), "Dopri5": {}}[integ]
+    js, jres = _run(JSqpPowell, JPrgDIC(K=8, integrator=getattr(
+        jint, integ)(**kw)), max_iters=100)
+    ts, tres = _run(SqpPowell, PrgDIC(K=8, integrator=getattr(
+        tint, integ)(**kw), device=CPU), max_iters=100)
+    assert jres == tres == "optimal"
+    assert (ts.iter, ts.qp_iters_total) == (js.iter, js.qp_iters_total)
+    _close(float(ts.f), float(js.f), 0.0, rtol=1e-8)
