@@ -126,7 +126,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the host syncs per IP iteration and, for the adaptive integrators,
      the loop iterations and host reads per make_qp; K1 and K2 launched
      in every case; then K1 and K2 on the first inputs the cases gave them
-     at each shape and dtype, against their plain twins.
+     at each shape and dtype, against their plain twins;
+ 21. the shell slice, every program made by hqp_tpu_torch.shell.Shell on
+     the card: (a) the README's quick start (DID-60) and DID-1000 through
+     ``prg_name DID; prg_kmax 1000; qp_eps 1e-7; ...; hqp_solve``
+     (SHELL_SCRIPTS), (b) five hqp_solve_hot steps of that DID-1000 after
+     ``set_pinned`` of the new initial states HOT_X0, each x0 honoured
+     exactly, the hot wall times beside the cold one, (c) the Crane through
+     the shell with its .plt file written and read back, and a checkpoint
+     of it after CKPT_ITERS SQP iterations resumed in a fresh shell's
+     solver that shares no storage with the saver, (d) DID-1000 with
+     ``sqp_qp_solver Client``, the worker solving on the card (its K1 and
+     K2 launches, the bytes each way and the transport ms per QP), (e)
+     IntDemoT through the shell's mip_solve and the seeded MIQP by
+     BranchBound on the card, (f) prg_test and prg_qp_dump/qp_load on the
+     solved DID-1000: each at the JAX package's verdict, SQP/IP counts and
+     f within 1e-8 (REF_SHELL, REF_HOT, REF_CLIENT, REF_MIP: status,
+     integers and node count exact), per solve the wall time, host syncs
+     per IP iteration and K1/K2 launches (both launched in every solve of
+     (a)-(c)); (g) K1 and K2 on the first inputs (a) and (b) gave them,
+     against their plain twins.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -558,6 +577,105 @@ def knob_solver(name, device):
     return SqpPowell(PrgDID(kmax=1000, device=device), max_iters=50,
                      qp_solver=Mehrotra(eps=QP_EPS_DID1000, max_iters=50,
                                         **KNOB_CASES[name]))
+
+
+#: phase 21's shell scripts: the README's quick start (DID-60), DID-1000
+#: at the QP tolerance of every recorded DID-1000 run, and the Crane
+SHELL_SCRIPTS = {
+    "quickstart": "prg_name DID; prg_kmax 60; qp_mat_solver SpSC; "
+                  "prg_setup; hqp_solve",
+    "DID-1000": f"prg_name DID; prg_kmax 1000; qp_eps {QP_EPS_DID1000}; "
+                "qp_mat_solver SpSC; prg_setup; prg_simulate; hqp_solve",
+    "Crane": "prg_name Crane; prg_setup; prg_simulate; hqp_solve",
+    # the Client is chosen before qp_eps creates the solver
+    "DID-1000 Client": "prg_name DID; prg_kmax 1000; sqp_qp_solver Client; "
+                       f"qp_eps {QP_EPS_DID1000}; qp_mat_solver SpSC; "
+                       "prg_setup; prg_simulate; hqp_solve",
+}
+#: the measured initial states of phase 21 (b)'s hqp_solve_hot steps
+HOT_X0 = tuple((1.0 + 0.01 * j, 0.0) for j in range(1, 6))
+#: SQP iterations (qp_update, qp_solve, step) before phase 21 (c)'s
+#: checkpoint of the Crane is saved
+CKPT_ITERS = 3
+#: phase 21 (e)'s seeded convex MIQP
+MIQP = dict(seed=0, n=30, n_int=12, me=4)
+
+
+def miqp_arrays(seed, n, n_int, me):
+    """The MIQP of MIQP as host arrays (Q, c, A, b, C, d, int_mask) of
+    min 1/2 x'Qx + c'x, Ax + b = 0, Cx + d >= 0: Q = M'M + I, the first
+    n_int variables integer in [0, 4], the rest in [-10, 10], and me
+    equality rows through a point with integer first entries."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((n, n))
+    Q = M.T @ M + np.eye(n)
+    c = 10.0 * rng.standard_normal(n)
+    A = rng.standard_normal((me, n))
+    xf = np.concatenate([rng.integers(0, 5, n_int),
+                         rng.uniform(-1.0, 1.0, n - n_int)])
+    lo = np.concatenate([np.zeros(n_int), np.full(n - n_int, -10.0)])
+    hi = np.concatenate([np.full(n_int, 4.0), np.full(n - n_int, 10.0)])
+    return (Q, c, A, -A @ xf, np.vstack([np.eye(n), -np.eye(n)]),
+            np.concatenate([-lo, hi]), np.arange(n) < n_int)
+
+
+#: the JAX package's (verdict, f, SQP, IP) of each script of SHELL_SCRIPTS in
+#: a fresh Shell and of the Crane stopped after CKPT_ITERS SQP iterations,
+#: saved, loaded into a fresh shell's solver and solved ("Crane resumed"),
+#: on a CPU host in f64 (shell_reference_values() in tests/test_torch_sqp.py)
+REF_SHELL = {
+    "quickstart": ("optimal", 98.40000001279562, 1, 24),
+    "DID-1000": ("optimal", 88.91363105840026, 1, 27),
+    "Crane": ("optimal", 11.6751235521463, 6, 61),
+    "Crane resumed": ("optimal", 11.675123370117783, 5, 63),
+}
+#: the same of the DID-1000 script with ``sqp_qp_solver Client`` (the
+#: reference's worker solves on its CPU)
+REF_CLIENT = ("optimal", 88.91363105840026, 1, 27)
+#: (verdict, f, SQP, IP) of each hqp_solve_hot step of DID-1000 after
+#: set_pinned(HOT_X0[j]), counted over the step; steps 2 and 4 take more
+#: IP iterations than the cold solve in the reference too: their hot start
+#: fails its decay test and the IP restarts cold (ROADMAP Q3 R18)
+REF_HOT = (
+    ("optimal", 90.26103021621438, 1, 7),
+    ("optimal", 91.63516592301794, 1, 28),
+    ("optimal", 93.03680319271962, 1, 6),
+    ("optimal", 94.46591202730134, 1, 35),
+    ("optimal", 95.92262823934789, 1, 11),
+)
+#: BranchBound's (status, f, integer values) of IntDemoT through the shell
+#: (mip_f, mip_x) and (status, f, nodes, integer values) of MIQP
+REF_MIP = {
+    "IntDemoT": ("optimal", 0.9799999999999999, (2.0, 1.0)),
+    "MIQP": ("optimal", -27.913560303012957, 25,
+             (4.0, 1.0, 0.0, 2.0, 0.0, 0.0, 1.0, 0.0, 1.0, 0.0, 1.0, 0.0)),
+}
+#: f of phase 21's solves against the reference (relative)
+SHELL_F_RTOL = 1e-8
+
+
+def register_int_demo():
+    """Register the port's IntDemoT (tests/test_mip.py's two-integer
+    program) under prg_name, once."""
+    from hqp_tpu_torch.docp.nlp import Nlp
+    from hqp_tpu_torch.utils.registry import modules
+    if modules.has("prg_name", "IntDemoT"):
+        return
+
+    @modules.register("prg_name", "IntDemoT")
+    class IntDemoT(Nlp):
+        name = "IntDemoT"
+        n = 2
+        m = 0
+        x_int = [True, True]
+
+        def setup_vars(self):
+            return dict(x_min=[0.0, 0.0], x_max=[5.0, 5.0],
+                        x_init=[1.0, 1.0])
+
+        def f0(self, x):
+            return ((x[0] - 2.3) ** 2 + (x[1] - 1.7) ** 2
+                    + 0.2 * x[0] * x[1])
 
 
 #: BASELINE config 5 (bench.py:326-377): scenarios, draw scale, seed,
@@ -1772,6 +1890,209 @@ def phase_20(smi):
     spy.hold(20)
 
 
+def shell_drive(part, name, sh, step, ref, smi, whole=False):
+    """One action of phase 21 on the card, every counter set to 0 just
+    before it: ``step()`` runs it in the shell ``sh`` and returns the
+    verdict; held to ``ref`` = (verdict, f, SQP, IP) with f within
+    SHELL_F_RTOL, SQP and IP counted over the action (over the solver's
+    whole run with ``whole``).  Prints the wall time, the host syncs per
+    IP iteration and the launches; returns (wall ms, launches)."""
+    from hqp_tpu_torch.ops import thomas_cuda
+    from hqp_tpu_torch.utils import sync
+    s = sh.solver
+    it0, ip0 = (s.iter, s.qp_iters_total) if s is not None and not whole \
+        else (0, 0)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"gj": gj_launches(), "thomas": thomas_cuda.LAUNCHES}
+    f = float(sh("prg_f"))
+    it, ip = sh.solver.iter - it0, sh.solver.qp_iters_total - ip0
+    rres, rf, rit, rip = ref
+    print(f"[21{part}] {name}: {res}, f = {f!r} (reference {rf!r}, rel "
+          f"{abs(f - rf) / abs(rf):.1e}), SQP/IP {it} / {ip} (reference "
+          f"{rit} / {rip}), {ms:.1f} ms wall, host syncs "
+          f"{sync.COUNT / max(ip, 1):.2f} per IP iteration, launches K1 "
+          f"{launches['gj']} K2 {launches['thomas']}; on {smi}")
+    check(sh.solver.x.device.type == sh.solver.qp.Q.device.type == DEVICE,
+          f"{name}: not on the card")
+    check((res, it, ip) == (rres, rit, rip),
+          f"{name}: {res} at {it} / {ip} vs reference {ref}")
+    check(abs(f - rf) <= SHELL_F_RTOL * abs(rf), f"{name}: f = {f} vs {rf}")
+    return ms, launches
+
+
+def phase_21(smi):
+    """The shell slice on the card (see the module docstring)."""
+    import os
+    import tempfile
+
+    from hqp_tpu_torch.mip.branch_bound import BranchBound
+    from hqp_tpu_torch.qp.program import DenseQP
+    from hqp_tpu_torch.shell import Shell
+    from hqp_tpu_torch.utils import checkpoint, diagnostics, masked
+    register_int_demo()
+    tmp = tempfile.TemporaryDirectory()
+
+    def ran(launches, name):
+        check(launches["gj"]["tile"] + launches["gj"]["large"] > 0
+              and launches["thomas"] > 0,
+              f"{name} skipped a kernel: {launches}")
+
+    with KernelSpy() as spy:
+        # (a) the README's quick start, then DID-1000 through the shell
+        for name in ("quickstart", "DID-1000"):
+            spy.case = name
+            sh = Shell(rcfile=False, device=DEVICE)
+            ms, launches = shell_drive(
+                "a", name, sh, lambda: sh.run(SHELL_SCRIPTS[name])[-1],
+                REF_SHELL[name], smi)
+            ran(launches, name)
+        cold_ms = ms
+        check((REF_SHELL[name][3], launches["gj"]["tile"],
+               launches["thomas"]) == DID1000_COUNTS,
+              f"DID-1000 through the shell: launches {launches} vs "
+              f"{DID1000_COUNTS}")
+        # (b) MPC hot re-solves of DID-1000 in the same shell
+        hot = []
+        for j, x0 in enumerate(HOT_X0):
+            spy.case = f"DID-1000 hot {x0[0]}"
+            sh.prg.set_pinned(x0, stage=0)
+            ms, launches = shell_drive("b", spy.case, sh,
+                                       lambda: sh("hqp_solve_hot"),
+                                       REF_HOT[j], smi)
+            ran(launches, spy.case)
+            got = sh.solver.x[0, :2].tolist()
+            check(got == list(x0), f"{spy.case}: x0 = {got}, not {x0}")
+            hot.append(ms)
+    print(f"[21b] hqp_solve_hot ms: {[round(m, 1) for m in hot]}, mean "
+          f"{statistics.mean(hot):.1f} ms, against the cold solve's "
+          f"{cold_ms:.1f} ms; IP iterations {[r[3] for r in REF_HOT]} "
+          f"against the cold {REF_SHELL['DID-1000'][3]}; on {smi}")
+    check(sum(r[3] for r in REF_HOT) < len(REF_HOT) * REF_SHELL[
+        "DID-1000"][3], "the hot re-solves took more IP iterations in all "
+          "than as many cold solves")
+    # (f) prg_test and prg_qp_dump / qp_load on the solved DID-1000
+    out = sh("prg_test")
+    print(f"[21f] DID-1000 prg_test: {out}")
+    check(out.startswith("ok"), f"prg_test: {out}")
+    path = os.path.join(tmp.name, "did1000.npz")
+    sh(f"prg_qp_dump {path}")
+    qp = diagnostics.qp_load(path, DEVICE)
+    same = all(torch.equal(a, b) for a, b in zip(
+        masked.leaves(qp), masked.leaves(sh.solver.qp)))
+    print(f"[21f] DID-1000 QP dumped and loaded onto {qp.device}: every "
+          f"field equal {same}")
+    check(same and qp.device.type == DEVICE, "qp_load changed the QP")
+
+    # (c) the Crane through the shell, its plt file, and a checkpoint
+    sh = Shell(rcfile=False, device=DEVICE)
+    ms, launches = shell_drive("c", "Crane", sh,
+                               lambda: sh.run(SHELL_SCRIPTS["Crane"])[-1],
+                               REF_SHELL["Crane"], smi)
+    ran(launches, "Crane")
+    plt = os.path.join(tmp.name, "crane.plt")
+    sh(f"omu_write_plt {plt}")
+    n = int(sh(f"omu_read_plt {plt}"))
+    print(f"[21c] Crane omu_write_plt / omu_read_plt: {n} points, columns "
+          f"{sh.plt_names}")
+    check(n == sh.prg.K + 1, f"the Crane's plt file holds {n} points")
+    sh = Shell(rcfile=False, device=DEVICE)
+    sh.run("prg_name Crane; prg_setup; prg_simulate")
+    for _ in range(CKPT_ITERS):
+        sh.run("sqp_qp_update; sqp_qp_solve; sqp_step")
+    path = os.path.join(tmp.name, "crane.npz")
+    checkpoint.save_solver(path, sh.solver)
+    saver = sh.solver
+    sh = Shell(rcfile=False, device=DEVICE)
+    sh.run("prg_name Crane; prg_setup")
+    checkpoint.load_solver(path, sh.solver)
+    shared = {t.untyped_storage().data_ptr() for t in masked.leaves(
+        (saver.x, saver.y, saver.z, saver.qp, saver.ip_state))} & {
+        t.untyped_storage().data_ptr() for t in masked.leaves(
+            (sh.solver.x, sh.solver.y, sh.solver.z, sh.solver.qp,
+             sh.solver.ip_state))}
+    check(not shared, "the restored solver shares storage with the saver")
+    ms, launches = shell_drive("c", f"Crane resumed after {CKPT_ITERS} SQP "
+                               "iterations (SQP/IP over the whole run)", sh,
+                               lambda: sh("hqp_solve"),
+                               REF_SHELL["Crane resumed"], smi, whole=True)
+    ran(launches, "Crane resumed")
+    tmp.cleanup()
+
+    # (d) DID-1000 with its QPs solved in the Client's worker process
+    sh = Shell(rcfile=False, device=DEVICE)
+    try:
+        ms, launches = shell_drive(
+            "d", "DID-1000 by sqp_qp_solver Client", sh,
+            lambda: sh.run(SHELL_SCRIPTS["DID-1000 Client"])[-1],
+            REF_CLIENT, smi)
+        c = sh.solver.qp_solver
+        n, first, ran_k = c.solves, dict(c.seconds), dict(c.launches)
+        check(ran_k["K1"] > 0 and ran_k["K2"] > 0,
+              f"the Client's worker skipped a kernel: {ran_k}")
+        check((ran_k["K1"], ran_k["K2"]) == DID1000_COUNTS[1:],
+              f"the Client's worker: launches {ran_k} vs {DID1000_COUNTS}")
+        # one more QP to the warm worker: its transport without the start
+        qp = sh.solver.qp
+        c.solve(qp, c.init_state(qp))
+        warm = {k: c.seconds[k] - first[k] for k in first}
+        print(f"[21d] Client: worker on {DEVICE}, its launches in the "
+              f"shell's solve K1 {ran_k['K1']} K2 {ran_k['K2']}; bytes sent "
+              f"{c.moved['sent'] / (n + 1):.0f} and received "
+              f"{c.moved['received'] / (n + 1):.0f} per QP; the shell's {n} "
+              f"QP(s): round trip {first['round_trip'] * 1e3:.1f} ms, of it "
+              f"the worker's solve {first['solve'] * 1e3:.1f} ms (the rest "
+              f"is the worker's start and the transport); one more QP to "
+              f"the warm worker: round trip {warm['round_trip'] * 1e3:.1f} "
+              f"ms, solve {warm['solve'] * 1e3:.1f} ms, transport "
+              f"{(warm['round_trip'] - warm['solve']) * 1e3:.1f} ms; on "
+              f"{smi}")
+        check(REF_CLIENT == REF_SHELL["DID-1000"],
+              "REF_CLIENT differs from the shell's DID-1000")
+    finally:
+        sh.solver.qp_solver.close()
+
+    # (e) the mixed-integer layer: IntDemoT through the shell, the MIQP
+    sh = Shell(rcfile=False, device=DEVICE)
+    sh.run("prg_name IntDemoT; mip_solver BranchBound; prg_setup")
+    check(sh("hqp_solve") == "optimal", "IntDemoT's relaxation")
+    status, f = sh("mip_solve"), float(sh("mip_f"))
+    x = tuple(sh._mip_x.tolist())
+    rs, rf, rx = REF_MIP["IntDemoT"]
+    print(f"[21e] IntDemoT mip_solve: {status}, mip_f = {f!r} (reference "
+          f"{rf!r}), mip_x {x} on {sh._mip_x.device}")
+    check((status, x) == (rs, rx) and abs(f - rf) <= SHELL_F_RTOL * abs(rf),
+          f"IntDemoT: {status}, {f}, {x} vs {REF_MIP['IntDemoT']}")
+    Q, cq, A, b, C, d, im = (torch.as_tensor(a, device=DEVICE) for a in
+                             miqp_arrays(**MIQP))
+    bb = BranchBound()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, f, status = bb.solve(DenseQP.build(Q, cq, A=A, b=b, C=C, d=d),
+                            im.cpu().numpy())
+    ms = (time.perf_counter() - t0) * 1e3
+    rs, rf, rnodes, rx = REF_MIP["MIQP"]
+    ints = tuple(v + 0.0 for v in x[:MIQP["n_int"]].tolist())
+    print(f"[21e] MIQP n={MIQP['n']} ({MIQP['n_int']} integer, "
+          f"{MIQP['me']} equality rows) by BranchBound: {status}, f = {f!r} "
+          f"(reference {rf!r}), {bb.nodes} nodes (reference {rnodes}), "
+          f"integers {ints}, {ms:.1f} ms, {ms / bb.nodes:.1f} ms per node; "
+          f"x on {x.device}; on {smi}")
+    check((status, bb.nodes, ints) == (rs, rnodes, rx),
+          f"MIQP: {status}, {bb.nodes} nodes, {ints} vs {REF_MIP['MIQP']}")
+    check(abs(f - rf) <= SHELL_F_RTOL * abs(rf), f"MIQP: f = {f} vs {rf}")
+    check(x.device.type == DEVICE, "the MIQP's solution left the card")
+
+    # (g) the kernels on (a)'s and (b)'s first inputs against their twins
+    spy.hold(21)
+
+
+
 def main():
     # -- 1. device and toolchain -----------------------------------------
     if not torch.cuda.is_available():
@@ -2043,6 +2364,10 @@ def main():
     # -- 20. the rest of the integrators and Mehrotra's knobs ----------------------
     phase_20(smi)
     clock(20)
+
+    # -- 21. the command shell and the actions it drives ---------------------------
+    phase_21(smi)
+    clock(21)
 
     def row(key, name, replaces):
         t = times[key]

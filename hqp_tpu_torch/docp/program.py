@@ -226,8 +226,14 @@ class Docp:
 
     # program protocol consumed by the SQP solver ---------------------------
 
+    #: evaluation counters (prg_fbd_evals role, hqp/Hqp_Docp.h:113)
+    fbd_evals: int = 0
+    grd_evals: int = 0
+
     def make_qp(self, v, Q=None):
         """Assemble the StageQP linearization at iterate v."""
+        self.fbd_evals += 1
+        self.grd_evals += 1
         lb, ub, c_min, c_max, var_mask, con_mask = self._bounds
         f, b, cvals = self.eval_vals(v)
         A, cgrad, C = self.eval_derivs(v)
@@ -255,6 +261,7 @@ class Docp:
     def update_fbd_qp(self, qp: StageQP, v_old, v_new):
         """Re-evaluate only values at v_new, keeping the derivatives of qp
         (line search; Hqp_SqpProgram::update_fbd)."""
+        self.fbd_evals += 1
         lb, ub, c_min, c_max, var_mask, con_mask = self._bounds
         f, b, cvals = self.eval_vals(v_new)
         upd = {}
@@ -320,6 +327,21 @@ class Docp:
     def repin(self, v):
         """Force pinned (fixed) variables to their values."""
         return torch.where(self._pin_mask, self._pin_vals, v)
+
+    def set_pinned(self, x_fixed=None, stage=0):
+        """Update the pinned state values of one stage (MPC: the new
+        measured initial state).  x_fixed: [nx] values; only components
+        declared fixed in setup_vars change.  The pinned values are a new
+        tensor: a QP, iterate or checkpoint that holds the old one keeps
+        it."""
+        if x_fixed is not None:
+            row = torch.zeros_like(self._pin_vals, dtype=torch.bool)
+            row[stage, :self.nx] = True
+            new = torch.zeros_like(self._pin_vals)
+            new[stage, :self.nx] = torch.as_tensor(
+                x_fixed, dtype=torch.float64, device=self.device)
+            self._pin_vals = torch.where(row & self._pin_mask, new,
+                                         self._pin_vals)
 
     def split_blocks(self, vec):
         """[K1, nv] is already the per-stage BFGS block layout."""

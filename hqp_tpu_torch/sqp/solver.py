@@ -138,6 +138,7 @@ class SqpSolver:
         self.norm_df = 0.0
         self.f_bak = 0.0
         self.grd_L = None
+        self._hot_started_sqp = False
 
     # -- setup ---------------------------------------------------------------
 
@@ -245,6 +246,32 @@ class SqpSolver:
         self.sQs = st[2]
         self.norm_dx = st[3]
 
+    # -- MPC hot start (hqp/Hqp_SqpSolver.C:321-340, hqp_solve.tcl:76-78) ----
+
+    def qp_reinit_bd(self):
+        """Re-initialize bounds and values after the problem data changed
+        (a shifted initial state in an MPC loop), snapshotting the Hessian
+        of the last cold solution at the first call and restoring it at
+        every later one.  The snapshot is the QP's own Q tensor: no hela
+        writes a Q in place, each update makes a new one."""
+        if hasattr(self.prg, "repin"):
+            self.x = self.prg.repin(self.x)
+        f, qp = self.prg.update_fbd_qp(self.qp, self.x, self.x)
+        self.f, self.qp = f, qp
+        self.norm_inf = host(infeasibility(qp))
+        if not self._hot_started_sqp:
+            self._qp_Q_hot = self.qp.Q
+            self._hot_started_sqp = True
+        else:
+            self.qp = dataclasses.replace(self.qp, Q=self._qp_Q_hot)
+
+    def solve_hot(self, max_iters=None):
+        """Re-solve after a bound change, reusing the SQP iterate,
+        multipliers, Hessian snapshot and the IP's (z, w) hot-start pair
+        (hqp_solve_hot, hqp/hqp_solve.tcl:76-78)."""
+        self.qp_reinit_bd()
+        return self.solve(max_iters=max_iters, hot=True)
+
     # -- hessian restart (hqp/Hqp_SqpSolver.C:305-318) -----------------------
 
     def hela_restart(self):
@@ -296,15 +323,19 @@ class SqpSolver:
 
     # -- solve loop (hqp/hqp_solve.tcl:83-265) -------------------------------
 
-    def solve(self, max_iters=None):
+    def solve(self, max_iters=None, hot=False):
         if max_iters is not None:
             self.max_iters = max_iters
         if self.x is None:
             self.init()
         eps = self.eps
         nullsteps = 0
+        skip_update = hot  # a hot start cannot reuse higher-order info
         while True:
-            self.qp_update()
+            if skip_update:
+                skip_update = False
+            else:
+                self.qp_update()
             fv = host(self.f)
             if not (math.isfinite(fv) and math.isfinite(self.norm_inf)):
                 raise SqpError("evaluation")

@@ -1588,3 +1588,300 @@ def test_estimation_solves_match_reference(name):
     """Each estimation of chip_smoke.USER_CASES through SqpPowell in both
     packages, then confidence(): see :func:`check_user_solve`."""
     check_user_solve(name)
+
+
+# -- the shell slice: DID-60 through the shell, hot re-solves, diagnostics -------
+
+from hqp_tpu.shell import Shell as JShell  # noqa: E402
+from hqp_tpu.utils import checkpoint as jckpt  # noqa: E402
+from hqp_tpu.utils import diagnostics as jdiag  # noqa: E402
+
+from hqp_tpu_torch.shell import Shell  # noqa: E402
+from hqp_tpu_torch.utils import checkpoint as tckpt  # noqa: E402
+from hqp_tpu_torch.utils import diagnostics as tdiag  # noqa: E402
+from hqp_tpu_torch.utils import log as tlog  # noqa: E402
+from hqp_tpu_torch.utils import masked as tmk  # noqa: E402
+from hqp_tpu_torch.utils import sync  # noqa: E402
+
+#: tests/test_shell.py's test_did_via_shell script
+DID60_SCRIPT = """
+    prg_name DID
+    prg_kmax 60
+    sqp_solver Powell
+    qp_mat_solver SpSC
+    sqp_max_iters 50
+    prg_setup
+    sqp_init
+"""
+#: the measured initial states of the DID-60 hot re-solves
+HOT60_X0 = ((1.05, 0.0), (1.10, 0.0), (1.15, 0.0))
+
+
+def _close_scalar(a, b, rtol):
+    assert abs(a - b) <= rtol * abs(b), (a, b)
+
+
+def _did60_shell_drive(sh, pin, tmp):
+    """test_did_via_shell's script in ``sh``, then the readbacks, the plt
+    file and plot series, the final QP's dump, prg_test at the solution
+    and three hqp_solve_hot steps (``pin(prg, x0)`` sets the new initial
+    state); returns what each step gave."""
+    sh.run(DID60_SCRIPT)
+    res = sh("hqp_solve")
+    out = {"cold": (res, float(sh("prg_f")), int(sh("sqp_iter")),
+                    sh.solver.qp_iters_total),
+           "norms": (float(sh("sqp_norm_inf")), float(sh("sqp_eps"))),
+           "evals": (int(sh("prg_fbd_evals")), int(sh("prg_grd_evals"))),
+           "K": int(sh("prg_K"))}
+    plt = str(tmp / "did.plt")
+    assert sh(f"omu_write_plt {plt}") == plt
+    out["plt"] = (int(sh(f"omu_read_plt {plt}")), list(sh.plt_names),
+                  sh.plt_data, int(sh("omu_plot 0")), sh.plot_ydata,
+                  int(sh("omu_plot 2")), sh.plot_ydata)
+    out["dump"] = sh(f"prg_qp_dump {tmp / 'qp.npz'}")
+    out["prg_test"] = sh("prg_test")
+    s = sh.solver
+    reinit = s.qp_reinit_bd
+    restored = []
+
+    def spy():
+        before = s.qp.Q
+        reinit()
+        # (the Q is the snapshot, the Q came back from another one)
+        restored.append((s.qp.Q is s._qp_Q_hot, s.qp.Q is not before))
+
+    s.qp_reinit_bd = spy
+    out["hot"] = []
+    for x0 in HOT60_X0:
+        pin(sh.prg, x0)
+        s.qp_iters_total = 0
+        it0 = s.iter
+        res = sh("hqp_solve_hot")
+        if len(out["hot"]) == 0:
+            snap = (s._qp_Q_hot, np.array(s._qp_Q_hot))
+        out["hot"].append((res, float(sh("prg_f")), s.iter - it0,
+                           s.qp_iters_total, np.array(s.x)[0, :2]))
+    out["restored"] = restored
+    out["snapshot_kept"] = np.array_equal(np.array(snap[0]), snap[1]) and \
+        s._qp_Q_hot is snap[0]
+    return out
+
+
+def _resume(slv, prg, ck, path):
+    """tests/test_aux.py's checkpoint: DID-60 stopped after 3 SQP
+    iterations, saved to ``path``, loaded into a fresh solver and
+    finished; returns (saver, restored, verdict, f, SQP, IP)."""
+    s1 = slv(prg(), max_iters=50)
+    s1.init()
+    for _ in range(3):
+        s1.qp_update()
+        s1.qp_solve()
+        s1.step()
+    ck.save_solver(path, s1)
+    s2 = slv(prg(), max_iters=50)
+    s2.init()
+    ck.load_solver(path, s2)
+    assert s2.iter == s1.iter == 3
+    res = s2.solve()
+    return s1, s2, res, float(s2.f), s2.iter, s2.qp_iters_total
+
+
+@pytest.fixture(scope="module")
+def did60_shells(tmp_path_factory):
+    """:func:`_did60_shell_drive` in the JAX package's shell and in the
+    port's (on the CPU), each in a directory of its own; the reference's
+    side also holds tests/test_diagnostics.py's wrong Jacobian through
+    prg_test (whether it raises, then the error with the tolerance
+    lifted) and the checkpoint's resumed run."""
+    tmp = tmp_path_factory.mktemp("jax")
+    j = _did60_shell_drive(
+        JShell(rcfile=False),
+        lambda prg, x0: prg.set_pinned(jnp.asarray(x0), stage=0), tmp)
+    jp = _JBrokenDID(kmax=60)
+    try:
+        jdiag.prg_test(jp)
+        j["broken_raises"] = False
+    except ValueError:
+        j["broken_raises"] = True
+    j["broken"] = jdiag.prg_test(jp, tol=np.inf)["max_rel_err"]
+    j["resumed"] = _resume(JSqpPowell, lambda: JPrgDID(kmax=60), jckpt,
+                           str(tmp / "ckpt.npz"))[2:]
+    t = _did60_shell_drive(
+        Shell(rcfile=False, device="cpu"),
+        lambda prg, x0: prg.set_pinned(x0, stage=0),
+        tmp_path_factory.mktemp("port"))
+    return j, t
+
+
+def test_shell_did60_matches_reference(did60_shells):
+    """tests/test_shell.py's DID-60 script through both shells: the same
+    verdict, SQP/IP counts and evaluation counters (prg_fbd_evals,
+    prg_grd_evals), f within 1e-10 relative, sqp_norm_inf < sqp_eps;
+    ``prg_kmax 1000``-style constructor knobs re-create the program
+    (prg_K reads 60 back: the program keeps the reference's K)."""
+    j, t = did60_shells
+    assert t["cold"][0] == j["cold"][0] == "optimal"
+    assert t["cold"][2:] == j["cold"][2:]
+    _close_scalar(t["cold"][1], j["cold"][1], 1e-10)
+    _close_scalar(t["cold"][1], 98.4, 1e-5)
+    assert t["norms"][0] < t["norms"][1] == j["norms"][1]
+    assert t["evals"] == j["evals"] and t["evals"][0] > 0
+    assert t["K"] == j["K"] == 60
+
+
+@pytest.mark.parametrize("step", range(len(HOT60_X0)))
+def test_mpc_hot_resolve_matches_reference(did60_shells, step):
+    """tests/test_hot_start.py's MPC re-solve on DID-60, three steps:
+    after ``set_pinned(x0)`` each ``hqp_solve_hot`` gives the reference's
+    verdict and SQP/IP counts, f within 1e-10, fewer IP iterations than
+    the cold solve, and the new x0 exactly; from the second step on
+    qp_reinit_bd restores the Hessian snapshot ``_qp_Q_hot`` (the same
+    tensor, never written in place)."""
+    j, t = did60_shells
+    jr, tr = j["hot"][step], t["hot"][step]
+    assert tr[0] == jr[0] == "optimal"
+    assert tr[2:4] == jr[2:4]
+    assert tr[3] < t["cold"][3]
+    _close_scalar(tr[1], jr[1], 1e-10)
+    np.testing.assert_array_equal(tr[4], HOT60_X0[step])
+    assert t["restored"][step] == (True, step > 0)
+    assert j["restored"][step][0]
+    assert t["snapshot_kept"]
+
+
+def test_shell_plt_matches_reference(did60_shells):
+    """tests/test_plt.py's shell flow on the solved DID-60: omu_write_plt,
+    omu_read_plt (61 points) and omu_plot (61-point state polyline,
+    120-point control staircase) give the reference's names and counts and
+    its values within 1e-8."""
+    j, t = did60_shells
+    jn, jnames, jdata, j0, jy0, j2, jy2 = j["plt"]
+    tn, tnames, tdata, t0, ty0, t2, ty2 = t["plt"]
+    assert (tn, tnames, t0, t2) == (jn, jnames, j0, j2) == \
+        (61, ["time", "x0", "x1", "u0"], 61, 120)
+    for a, b in ((tdata, jdata), (ty0, jy0), (ty2, jy2)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-8,
+                                   rtol=1e-8)
+
+
+def test_qp_dump_loads_across_packages(did60_shells, tmp_path):
+    """``prg_qp_dump`` of the JAX package's final QP loads into the port
+    as the same QP (every field equal to the last bit), the port's own
+    dump round-trips, and the reference's qp_load reads the port's."""
+    j, t = did60_shells
+    jqp = jdiag.qp_load(j["dump"])
+    tqp = tdiag.qp_load(j["dump"], "cpu")
+    assert type(tqp).__name__ == type(jqp).__name__ == "StageQP"
+    ref = convert.stage_qp(jqp, "cpu")
+    for fl in dataclasses.fields(tqp):
+        a, b = getattr(tqp, fl.name), getattr(ref, fl.name)
+        assert (a is None) == (b is None), fl.name
+        if a is not None:
+            assert a.dtype == b.dtype and torch.equal(a, b), fl.name
+    mine = tdiag.qp_load(t["dump"], "cpu")
+    path = str(tmp_path / "again.npz")
+    tdiag.qp_dump(mine, path)
+    again = tdiag.qp_load(path, "cpu")
+    back = jdiag.qp_load(t["dump"])
+    for fl in dataclasses.fields(mine):
+        a = getattr(mine, fl.name)
+        if a is not None:
+            assert torch.equal(getattr(again, fl.name), a), fl.name
+            np.testing.assert_array_equal(np.asarray(getattr(back, fl.name)),
+                                          a.numpy())
+
+
+class _BrokenDID(PrgDID):
+    """tests/test_diagnostics.py's wrong Jacobian: A off by 1%."""
+
+    def eval_derivs(self, v):
+        A, cgrad, C = super().eval_derivs(v)
+        return A * 1.01, cgrad, C
+
+
+class _JBrokenDID(JPrgDID):
+    def eval_derivs(self, v):
+        A, cgrad, C = super().eval_derivs(v)
+        return A * 1.01, cgrad, C
+
+
+def test_prg_test_matches_reference(did60_shells):
+    """prg_test: at DID-60's solution both packages pass (the shell's
+    ``prg_test``, max relative error below 1e-4; what remains is the
+    central differences' rounding, which no two evaluations share); on
+    tests/test_diagnostics.py's wrong Jacobian both raise ValueError and,
+    with the check's tolerance lifted, report the same max relative error
+    within 1e-6 relative (the same probe directions: seed 0)."""
+    j, t = did60_shells
+    for out in (j["prg_test"], t["prg_test"]):
+        assert out.startswith("ok max_rel_err ")
+        assert float(out.split()[-1]) < 1e-4
+    tp = _BrokenDID(kmax=60, device="cpu")
+    with pytest.raises(ValueError):
+        tdiag.prg_test(tp)
+    assert j["broken_raises"]
+    te = tdiag.prg_test(tp, tol=np.inf)["max_rel_err"]
+    assert te > 1e-3
+    _close_scalar(te, j["broken"], 1e-6)
+
+
+def test_checkpoint_resume_matches_reference(did60_shells, tmp_path):
+    """tests/test_aux.py's checkpoint: DID-60 stopped after 3 SQP
+    iterations, saved, loaded into a fresh solver and finished, in both
+    packages: the port resumes to the reference's resumed verdict, SQP/IP
+    counts and f (within 1e-10), f within 1e-8 of the straight solve (the
+    shell's DID-60); the restored solver shares no storage with the one
+    that saved.  (Neither package's checkpoint holds Powell's penalty
+    weights, so the resumed run takes its own path: 5 / 49 against the
+    straight-on 3 / 40.)"""
+    j, t = did60_shells
+    s1, s2, *got = _resume(SqpPowell, lambda: PrgDID(kmax=60, device="cpu"),
+                           tckpt, str(tmp_path / "ckpt.npz"))
+    ref = j["resumed"]
+    assert got[0] == ref[0] == "optimal"
+    assert tuple(got[2:]) == ref[2:]
+    _close_scalar(got[1], ref[1], 1e-10)
+    _close_scalar(got[1], t["cold"][1], 1e-8)
+
+    def storages(s):
+        return {x.untyped_storage().data_ptr() for x in tmk.leaves(
+            (s.x, s.y, s.z, s.qp, s.ip_state, s.d, s.s, s.grd_L))}
+
+    assert not storages(s1) & storages(s2)
+
+
+def test_log_levels_and_timers(capsys, monkeypatch):
+    """tests/test_aux.py's log levels and timers, in both packages: the
+    same lines printed; a phase counts its calls and waits for no device
+    (no torch.cuda.synchronize, no counted host read)."""
+    from hqp_tpu.utils import log as jlog
+    outs = []
+    for lg in (jlog, tlog):
+        old = lg.level
+        try:
+            lg.set_level("info")
+            lg.info("sqp", "hello")
+            lg.error("qp", "bad")
+            lg.log(lg.LOG_ALL, "x", "hidden")
+            lg.warning("kkt", "shown")
+            outs.append(capsys.readouterr().out)
+        finally:
+            lg.level = old
+    assert outs[0] == outs[1] == \
+        "[info] sqp: hello\n[error] qp: bad\n[warning] kkt: shown\n"
+
+    def no_sync(*a):
+        raise AssertionError("a phase synchronized the device")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    t, n0 = tlog.Timers(), sync.COUNT
+    for _ in range(2):
+        with t.phase("factor"):
+            pass
+    with t.phase("solve"):
+        pass
+    rep = t.report()
+    assert rep["factor"]["calls"] == 2 and rep["solve"]["calls"] == 1
+    assert sorted(rep) == ["factor", "solve"] and sync.COUNT == n0
+    t.reset()
+    assert t.report() == {}

@@ -398,16 +398,34 @@ NLP_NAMES = ("TP383", "Maratos", "HS99", "LQBlend", "Broydn3d", "Bdqrtic",
              "Catena", "SRosenbr")
 
 
-@pytest.mark.parametrize("case", ["explicit", "default", "omu", "nlp"])
-def test_cuda_device_refused_without_card(monkeypatch, case):
+@pytest.mark.parametrize("case", ["explicit", "default", "omu", "nlp",
+                                  "shell"])
+def test_cuda_device_refused_without_card(monkeypatch, tmp_path, case):
     """Asking for the card where there is none raises; nothing carries on
     on the CPU.  With no ``device`` the entry points ask for the card, and
     they build on the CPU only when the caller names it.  The registry
     holds every program and integrator of the Omuses slice, the hosted
     suite's programs and every NLP program, and each program refuses the
     card it does not have (before it builds a hosted model), as do
-    ``solve_generated`` and ``convert.dense_qp``."""
+    ``solve_generated`` and ``convert.dense_qp``.  A Shell puts its
+    programs on the card unless it is given another device, and so
+    refuses ``prg_name`` without one; qp_load does the same."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if case == "shell":
+        from hqp_tpu_torch.shell import Shell
+        from hqp_tpu_torch.utils.diagnostics import qp_load
+        for name in ("DID", "Maratos", "Crane"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                Shell(rcfile=False)(f"prg_name {name}")
+        sh = Shell(rcfile=False, device=CPU)
+        sh.run("prg_name DID; prg_kmax 10; prg_setup")
+        assert sh.solver.x.device.type == sh.solver.qp.Q.device.type == CPU
+        path = str(tmp_path / "qp.npz")
+        assert sh(f"prg_qp_dump {path}") == path
+        with pytest.raises(RuntimeError):
+            qp_load(path)
+        assert qp_load(path, CPU).Q.device.type == CPU
+        return
     if case == "nlp":
         assert set(NLP_NAMES) <= set(modules.names("prg_name"))
         for name in NLP_NAMES:
@@ -470,9 +488,13 @@ def test_port_imports_no_jax():
          "hqp_tpu_torch.omu.dynamic_opt, hqp_tpu_torch.omu.hosted, "
          "hqp_tpu_torch.omu.plt_io, hqp_tpu_torch.hxi, "
          "hqp_tpu_torch.models.hxi_suite; "
+         "import hqp_tpu_torch.shell, hqp_tpu_torch.all_modules, "
+         "hqp_tpu_torch.mip, hqp_tpu_torch.qp.client, "
+         "hqp_tpu_torch.utils.checkpoint, hqp_tpu_torch.utils.log; "
          "from hqp_tpu_torch.utils.registry import modules; "
          "assert {'DynamicOpt', 'DynamicEst', 'SFunctionOpt', "
          "'SFunctionEst'} <= set(modules.names('prg_name')); "
+         "assert modules.has('sqp_qp_solver', 'Client'); "
          "assert 'jax' not in sys.modules, 'jax imported'"],
         check=True, env=env, cwd=root, timeout=120)
 
@@ -654,6 +676,11 @@ def test_powell_watchdog_matches_reference(start, credit):
     assert ts.wd_relaxed_steps >= 2 if credit == 3 else ts.wd_backouts >= 1
 
 
+#: the JAX package's registry entries whose modules are not ported yet
+#: (ROADMAP Q1: the MEX host, the sharded KKT backend)
+PORT_PENDING = {("prg_name", "DID_MEX"), ("qp_mat_solver", "SpSCdist")}
+
+
 def test_registry_holds_the_exchangeable_modules():
     """The names of the ported slices resolve to the port's classes: since
     the host-sparse slice ``qp_mat_solver RedSpBKP`` (the name the
@@ -663,19 +690,29 @@ def test_registry_holds_the_exchangeable_modules():
     formulations ``DynamicOpt``, ``DynamicEst``, ``DTOpt``, ``DTEst``, the
     aliases ``SFunctionOpt``/``SFunctionEst`` and the hosted suite
     ``DID_SFunction``, ``DIC``, ``DIC_SFunction``, ``DIC_FMU``; since the
-    integrator slice every ``prg_integrator`` of the reference; a DenseQP
-    program gets DenseKKT from SqpSolver.init."""
-    import hqp_tpu_torch.sqp.schittkowski  # noqa: F401
+    integrator slice every ``prg_integrator`` of the reference; since the
+    shell slice ``mip_solver LPSolve``/``BranchBound`` and ``sqp_qp_solver
+    Client``.  After ``all_modules`` (and the modules both test files
+    import) the port's registry equals the JAX package's less the modules
+    not ported yet (PORT_PENDING); a DenseQP program gets DenseKKT from
+    SqpSolver.init."""
+    import hqp_tpu.all_modules  # noqa: F401
+    import hqp_tpu.parallel.sharded_kkt  # noqa: F401  (SpSCdist)
+    import hqp_tpu_torch.all_modules  # noqa: F401
     from hqp_tpu_torch.qp import kkt as tkkt
     want = {"sqp_solver": {"Powell", "Schittkowski"},
-            "sqp_qp_solver": {"Mehrotra", "Franke"},
+            "sqp_qp_solver": {"Mehrotra", "Franke", "Client"},
             "sqp_hela": {"BFGS", "DScale", "Gerschgorin", "AugBFGS",
                          "Gangster", "SparseBFGS"},
             "qp_mat_solver": {"SpSC", "LQDOCP", "DenseKKT", "Riccati",
                               "FullKKT", "RedSpBKP", "RedSpBKP_host",
-                              "SpBKP"}}
+                              "SpBKP"},
+            "mip_solver": {"LPSolve", "BranchBound"}}
     for slot, names in want.items():
         assert set(modules.names(slot)) == names, slot
+    assert set(jmodules._factories) - set(modules._factories) == \
+        PORT_PENDING
+    assert set(modules._factories) <= set(jmodules._factories)
     # the integrators: the reference's 15 names (DASPK an alias of BDF),
     # each the port's class of the reference's class name
     import hqp_tpu.omu.integrators  # noqa: F401
@@ -691,6 +728,9 @@ def test_registry_holds_the_exchangeable_modules():
             ("qp_mat_solver", "SpBKP", tsh.FullSparseBKPKKT),
             ("qp_mat_solver", "FullKKT", tkkt.FullStageKKT),
             ("sqp_qp_solver", "Franke", Franke),
+            ("sqp_qp_solver", "Client", Client),
+            ("mip_solver", "LPSolve", BranchBound),
+            ("mip_solver", "BranchBound", BranchBound),
             ("sqp_hela", "SparseBFGS", thess.SparseBFGS)):
         assert modules.create(slot, name).__class__ is cls, (slot, name)
     sif = os.path.join(SIF_DIR, "HS21.SIF")
@@ -1563,3 +1603,262 @@ def test_sqp_dic_matches_reference(integ):
     assert jres == tres == "optimal"
     assert (ts.iter, ts.qp_iters_total) == (js.iter, js.qp_iters_total)
     _close(float(ts.f), float(js.f), 0.0, rtol=1e-8)
+
+
+# -- the shell slice: the command shell and the actions it drives ----------------
+
+from hqp_tpu.docp.nlp import Nlp as JNlp  # noqa: E402
+from hqp_tpu.mip.branch_bound import BranchBound as JBranchBound  # noqa: E402
+from hqp_tpu.shell import Shell as JShell  # noqa: E402
+
+from hqp_tpu_torch.mip.branch_bound import BranchBound  # noqa: E402
+from hqp_tpu_torch.qp.client import Client  # noqa: E402
+from hqp_tpu_torch.shell import Shell  # noqa: E402
+
+chip_smoke.register_int_demo()
+if not jmodules.has("prg_name", "IntDemoT"):
+    @jmodules.register("prg_name", "IntDemoT")
+    class JIntDemoT(JNlp):
+        """tests/test_mip.py's program, in the JAX package's registry."""
+        name = "IntDemoT"
+        n = 2
+        m = 0
+        x_int = [True, True]
+
+        def setup_vars(self):
+            return dict(x_min=[0.0, 0.0], x_max=[5.0, 5.0],
+                        x_init=[1.0, 1.0])
+
+        def f0(self, x):
+            return ((x[0] - 2.3) ** 2 + (x[1] - 1.7) ** 2
+                    + 0.2 * x[0] * x[1])
+
+
+def _shell_row(sh, res):
+    """(verdict, f, SQP, IP) of a shell's solver."""
+    return (res, float(sh("prg_f")), sh.solver.iter,
+            sh.solver.qp_iters_total)
+
+
+def shell_reference_values():
+    """The JAX package's results that chip_smoke.py phase 21 holds the card
+    to, one JSON row each: [script, verdict, f, SQP, IP] of each script of
+    chip_smoke.SHELL_SCRIPTS in a fresh Shell (REF_SHELL; the one of the
+    Client is REF_CLIENT); ["hot", x0, verdict, f, SQP, IP] of each
+    hqp_solve_hot step of DID-1000 after prg.set_pinned(x0) (REF_HOT, SQP
+    and IP counted over the step); ["Crane resumed", ...] of the Crane
+    stopped after CKPT_ITERS SQP iterations, saved, loaded into a fresh
+    shell's solver and solved; ["IntDemoT", status, mip_f, mip_x] and
+    ["MIQP", status, f, nodes, x] of BranchBound on chip_smoke.MIQP
+    (REF_MIP).  Run from the repository root on a CPU host (about 10
+    minutes): ``JAX_PLATFORMS=cpu python -c "import jax;
+    jax.config.update('jax_platforms', 'cpu'); import tests.test_torch_sqp
+    as t; t.shell_reference_values()"``."""
+    import tempfile
+
+    from hqp_tpu.utils.checkpoint import load_solver, save_solver
+
+    for name, script in chip_smoke.SHELL_SCRIPTS.items():
+        sh = JShell(rcfile=False)
+        print(json.dumps([name, *_shell_row(sh, sh.run(script)[-1])]),
+              flush=True)
+        if name != "DID-1000":
+            continue
+        for x0 in chip_smoke.HOT_X0:
+            sh.prg.set_pinned(jnp.asarray(x0), stage=0)
+            it0, ip0 = sh.solver.iter, sh.solver.qp_iters_total
+            res, f, it, ip = _shell_row(sh, sh("hqp_solve_hot"))
+            print(json.dumps(["hot", x0, res, f, it - it0, ip - ip0]),
+                  flush=True)
+    sh = JShell(rcfile=False)
+    sh.run("prg_name Crane; prg_setup; prg_simulate")
+    for _ in range(chip_smoke.CKPT_ITERS):
+        sh.run("sqp_qp_update; sqp_qp_solve; sqp_step")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "crane.npz")
+        save_solver(path, sh.solver)
+        sh = JShell(rcfile=False)
+        sh.run("prg_name Crane; prg_setup")
+        load_solver(path, sh.solver)
+    print(json.dumps(["Crane resumed", *_shell_row(sh, sh("hqp_solve"))]),
+          flush=True)
+    sh = JShell(rcfile=False)
+    sh.run("prg_name IntDemoT; prg_setup; hqp_solve")
+    print(json.dumps(["IntDemoT", sh("mip_solve"), float(sh("mip_f")),
+                      sh._mip_x.tolist()]), flush=True)
+    Q, c, A, b, C, d, im = chip_smoke.miqp_arrays(**chip_smoke.MIQP)
+    bb = JBranchBound()
+    x, f, status = bb.solve(JDenseQP.build(
+        jnp.asarray(Q), jnp.asarray(c), A=jnp.asarray(A), b=jnp.asarray(b),
+        C=jnp.asarray(C), d=jnp.asarray(d)), im)
+    print(json.dumps(["MIQP", status, float(f), bb.nodes,
+                      np.asarray(x).tolist()]), flush=True)
+
+
+def _knob_runs(sh):
+    """tests/test_shell.py's Maratos by Schittkowski at sqp_eps 1e-6, then
+    sqp_eps 1e-10 and a second hqp_solve: both rows, the qp_result and the
+    evaluation counters."""
+    sh.run("prg_name Maratos; sqp_solver Schittkowski; sqp_eps 1e-6; "
+           "prg_setup")
+    first = _shell_row(sh, sh("hqp_solve"))
+    assert float(sh("sqp_eps")) == 1e-6
+    second = _shell_row(sh, sh.run("sqp_eps 1e-10; hqp_solve")[-1])
+    return [list(first), list(second), sh("qp_result"),
+            int(sh("prg_fbd_evals")), int(sh("prg_grd_evals"))]
+
+
+def test_shell_knobs_between_solves_match_reference():
+    """tests/test_shell.py's Maratos by ``sqp_solver Schittkowski`` at
+    ``sqp_eps 1e-6``, then ``sqp_eps 1e-10`` written between two
+    ``hqp_solve``s: each run, the ``qp_result`` and the evaluation
+    counters equal the JAX package's (verdict and SQP/IP counts exactly, f
+    within 1e-10 relative), and the knob moved the second run on."""
+    jf, js, *jrest = _knob_runs(JShell(rcfile=False))
+    tf, ts, *trest = _knob_runs(Shell(rcfile=False, device=CPU))
+    for j, t in ((jf, tf), (js, ts)):
+        assert t[0] == j[0] == "optimal" and t[2:] == j[2:]
+        _close(t[1], j[1], 0.0, rtol=1e-10)
+    assert trest == jrest and trest[0] == "optimal"
+    assert ts[2] > tf[2]          # the tighter sqp_eps took more steps
+    _close(tf[1], -1.0, 1e-5)
+
+
+def test_client_worker_matches_local_solve():
+    """``sqp_qp_solver Client``: Maratos' QPs solved by the worker process
+    give the local solve's verdict, SQP/IP counts and f to the last bit
+    (Powell with BFGS, the JAX package's REF_ALT row), with the bytes each
+    way counted; a job the worker fails (CUDA on a host without it, the
+    worker's own device rule) raises RuntimeError with its message, and the
+    worker serves the next job."""
+    js, jres = _run(JSqpPowell, JN.PrgMaratos(), max_iters=50)
+    local, lres = _run(SqpPowell, TN.PrgMaratos(device=CPU), max_iters=50)
+    client = Client()
+    try:
+        remote, rres = _run(SqpPowell, TN.PrgMaratos(device=CPU),
+                            qp_solver=client, max_iters=50)
+        assert rres == lres == jres == "optimal"
+        assert (remote.iter, remote.qp_iters_total) == \
+            (local.iter, local.qp_iters_total) == (js.iter, js.qp_iters_total)
+        assert float(remote.f) == float(local.f)
+        _close(float(remote.f), float(js.f), 0.0, rtol=1e-10)
+        assert client.solves == remote.iter
+        assert client.moved["sent"] > client.moved["received"] > 0
+        assert client.launches == {"K1": 0, "K2": 0}
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            client._call({"device": "cuda"})
+        st = client.solve(remote.qp, client.init_state(remote.qp))
+        assert int(st.result) == 0
+    finally:
+        client.close()
+
+
+def _mip_case(name):
+    """tests/test_mip.py's QPs and chip_smoke.MIQP as numpy (Q, c, A, b,
+    C, d) and the integer mask."""
+    eye = np.eye(2)
+    if name == "rounding_trap":
+        Q = np.array([[2.0, 1.2], [1.2, 2.0]])
+        return (Q, -Q @ np.array([2.4, 1.6]), None, None,
+                np.vstack([eye, -eye]), np.array([0.0, 0.0, 4.0, 4.0]),
+                [True, True])
+    if name == "equality":
+        return (np.diag([2.0, 2.0]), np.array([-3.4, -0.4]),
+                np.array([[1.0, 1.0]]), np.array([-2.3]),
+                np.vstack([eye, -eye]), np.array([0.0, 0.0, 5.0, 5.0]),
+                [True, False])
+    if name == "infeasible":
+        return (np.array([[2.0]]), np.array([0.0]), None, None,
+                np.array([[1.0], [-1.0]]), np.array([-0.4, 0.6]), [True])
+    if name == "no_integers":
+        return (np.diag([2.0, 2.0]), np.array([-2.0, -4.0]), None, None,
+                eye, np.zeros(2), [False, False])
+    *arrs, im = chip_smoke.miqp_arrays(**chip_smoke.MIQP)
+    return (*arrs, im)
+
+
+#: tests/test_mip.py's cases and chip_smoke's MIQP (see _mip_case)
+MIP_CASES = ("rounding_trap", "equality", "infeasible", "no_integers",
+             "miqp")
+
+
+def _jax_branch_bound(name):
+    """The JAX package's BranchBound on _mip_case(name): [status, nodes,
+    x or None, f]."""
+    Q, c, A, b, C, d, im = _mip_case(name)
+    bb = JBranchBound()
+    x, f, status = bb.solve(JDenseQP.build(
+        jnp.asarray(Q), jnp.asarray(c),
+        *[None if a is None else jnp.asarray(a) for a in (A, b, C, d)]), im)
+    return [status, bb.nodes, None if x is None else np.asarray(x).tolist(),
+            float(f)]
+
+
+def _mip_shell(sh):
+    """tests/test_mip.py's shell flow on IntDemoT: [mip_f, mip_x]."""
+    sh.run("prg_name IntDemoT; mip_solver BranchBound; prg_setup")
+    assert sh("hqp_solve") == "optimal"
+    assert sh("mip_solve") == "optimal"
+    return [float(sh("mip_f")), sh._mip_x.tolist()]
+
+
+@pytest.mark.parametrize("name", MIP_CASES)
+def test_branch_bound_matches_reference(name):
+    """BranchBound on tests/test_mip.py's cases and on chip_smoke's seeded
+    MIQP in both packages: the same status, node count and integer
+    values, x and f within 1e-8."""
+    js, jnodes, jx, jf = _jax_branch_bound(name)
+    Q, c, A, b, C, d, im = _mip_case(name)
+    tb = BranchBound()
+    tx, tf, ts = tb.solve(DenseQP.build(_c(Q), _c(c), *[
+        None if a is None else _c(a) for a in (A, b, C, d)]), im)
+    assert ts == js
+    assert tb.nodes == jnodes
+    if jx is None:
+        assert tx is None and ts == "infeasible"
+        return
+    assert tx.device.type == CPU
+    _close(tx, np.asarray(jx), 1e-8)
+    _close(tf, jf, 1e-8)
+    ints = np.flatnonzero(im)
+    assert np.array_equal(_np(tx)[ints], np.asarray(jx)[ints])
+
+
+def test_mip_via_shell_matches_reference():
+    """tests/test_mip.py's shell flow on IntDemoT: the SQP solve, then
+    ``mip_solve`` over the final relaxation, in both packages: mip_f 0.98
+    and x = [2, 1], equal to the reference's."""
+    jf, jx = _mip_shell(JShell(rcfile=False))
+    tf, tx = _mip_shell(Shell(rcfile=False, device=CPU))
+    _close(tf, 0.98, 1e-9)
+    _close(tf, jf, 1e-12)
+    assert [round(v) for v in tx] == [round(v) for v in jx] == [2, 1]
+    _close(np.asarray(tx), np.asarray(jx), 1e-8)
+
+
+#: programs the shell creates with their defaults (the hosted ones build
+#: a compiled model and are left out)
+SHELL_PROGRAMS = ("DID", "Crane", "BatchReactor", "Bio", "TP383omu",
+                  "HS99omu", "CranePar", "TP383", "Maratos", "HS99", "DIC")
+
+
+def test_shell_constructor_knobs_match_reference():
+    """A ``prg_<name> value`` knob writes the program's attribute where
+    the program has one and re-creates the program from constructor
+    arguments where it does not (hqp_tpu/shell.py:455-468), so each
+    program must keep the reference's attribute names: for every
+    constructor argument of the programs above, the port's program has an
+    attribute of that name exactly where the reference's has one; and
+    ``prg_kmax 1000`` re-creates DID with K = 1000 in both shells."""
+    import inspect
+    for name in SHELL_PROGRAMS:
+        jp = jmodules.create("prg_name", name)
+        tp = modules.create("prg_name", name, device=CPU)
+        args = set(inspect.signature(type(tp).__init__).parameters) - {
+            "self", "device", "kw", "args"}
+        assert {a for a in args if hasattr(tp, a)} == \
+            {a for a in args if hasattr(jp, a)}, name
+    for sh in (JShell(rcfile=False), Shell(rcfile=False, device=CPU)):
+        sh.run("prg_name DID; prg_kmax 1000")
+        assert sh("prg_K") == "1000" and sh.prg.K == 1000
+        assert not hasattr(sh.prg, "kmax")
