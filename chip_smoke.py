@@ -145,7 +145,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      integers and node count exact), per solve the wall time, host syncs
      per IP iteration and K1/K2 launches (both launched in every solve of
      (a)-(c)); (g) K1 and K2 on the first inputs (a) and (b) gave them,
-     against their plain twins.
+     against their plain twins;
+ 22. the MEX and Simulink-coder hosts and the sharded KKT backend: (a) the
+     demo S-function csrc/hxi_simulink/sfun_did_demo.c built both ways (the
+     cg_sfun build and the MEX build, which exports mexFunction alone) and
+     the MEX host library, under build/, driven alike to the last bit; (b)
+     DID_MEX at K = 60 and 1000 (MEX_CASES: DID through the MEX build, its
+     parameter as MATLAB-style text), every QP on the card, each at the
+     JAX package's verdict and SQP/IP counts with f within 1e-8 (REF_MEX),
+     DID_MEX-1000 at DID-1000's f within 1e-6, K1 and K2 launched and held
+     against their twins on the case's first inputs; (c) DID-1000 with
+     qp_mat_solver SpSCdist (ShardedPartitionedKKT over a one-rank nccl
+     group made without a launcher) at the JAX package's SpSCdist verdict,
+     SQP/IP counts and f within 1e-8 (REF_SHARD), K1 on its [50, 98, 98]
+     interiors and K2 on its master held against their twins, both timed
+     there as in phase 5; (d) per solve the wall time, the host-callback
+     time, host syncs per IP iteration, launches and collectives.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -652,6 +667,32 @@ REF_MIP = {
 }
 #: f of phase 21's solves against the reference (relative)
 SHELL_F_RTOL = 1e-8
+
+
+#: phase 22's solves, each SqpPowell(prg, **solver), init(), [simulate()],
+#: solve(): name -> (program keywords, solver keywords, simulate).  DID_MEX
+#: is DID through the MEX-built demo S-function (csrc/hxi_simulink/
+#: sfun_did_demo.c), at the reference's size (tests/test_mex_sfun.py:
+#: 119-134) and at K = 1000 with DID-1000's settings
+MEX_CASES = {
+    "DID_MEX": (dict(kmax=60), {}, False),
+    "DID_MEX-1000": (dict(kmax=1000), dict(max_iters=50,
+                                           qp_eps=QP_EPS_DID1000), True),
+}
+#: the JAX package's (verdict, f, SQP, IP) of MEX_CASES on a CPU host in
+#: f64 (mex_reference_values() in tests/test_torch_sqp.py)
+REF_MEX = {
+    "DID_MEX": ("optimal", 98.40000001515537, 1, 24),
+    "DID_MEX-1000": ("optimal", 88.91363107458275, 1, 27),
+}
+#: the JAX package's DID-1000 by qp_mat_solver SpSCdist
+#: (ShardedPartitionedKKT on a one-device mesh: L = 20, P = 50, its master
+#: by cyclic reduction) with DID-1000's settings, on a CPU host in f64
+#: (mex_reference_values())
+REF_SHARD = ("optimal", 88.91363105840014, 1, 27)
+#: K1's shape on the sharded DID-1000 at one rank: P = 50 interiors of
+#: s = 98 with b = 4 couplings
+SHARD_K1 = (50, 98, 98)
 
 
 def register_int_demo():
@@ -2093,6 +2134,174 @@ def phase_21(smi):
 
 
 
+
+def drive22(part, name, prg, skw, sim, ref, smi, **kw):
+    """One solve of phase 22 on the card, every counter set to 0 just
+    before it: SqpPowell(prg, **skw, **kw), init(), [simulate()], solve(),
+    held to ``ref`` = (verdict, f, SQP, IP) with f within USER_F_RTOL.
+    Prints the wall time, the host-callback time of a hosted model, the
+    host syncs per IP iteration and the launches; returns (f, launches)."""
+    from hqp_tpu_torch.omu import hosted
+    from hqp_tpu_torch.ops import thomas_cuda
+    from hqp_tpu_torch.parallel import sharded_kkt
+    from hqp_tpu_torch.prof_did1000 import LayerTimers
+    from hqp_tpu_torch.sqp.powell import SqpPowell
+    from hqp_tpu_torch.sqp.solver import SqpError
+    from hqp_tpu_torch.utils import sync
+    lt = LayerTimers(torch.device(DEVICE))
+    lt.wrap(hosted._HostFn, "run", "hosted")
+    reset_counts()
+    sharded_kkt.COLLECTIVES = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = SqpPowell(prg, **skw, **kw)
+        s.init()
+        if sim:
+            s.simulate()
+        try:
+            res = s.solve()
+        except SqpError as e:
+            res = e.reason
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        lt.restore()
+    launches = {"gj": gj_launches(), "thomas": thomas_cuda.LAUNCHES,
+                "collectives": sharded_kkt.COLLECTIVES}
+    f, it, ip = float(s.f), s.iter, s.qp_iters_total
+    rres, rf, rit, rip = ref
+    print(f"[22{part}] {name}: {res}, f = {f!r} (reference {rf!r}, rel "
+          f"{abs(f - rf) / abs(rf):.1e}), SQP/IP {it} / {ip} (reference "
+          f"{rit} / {rip}), {secs * 1e3:.1f} ms wall, host callbacks "
+          f"{lt.excl['hosted'] * 1e3:.1f} ms in {lt.calls['hosted']} "
+          f"batches, host syncs {sync.COUNT / max(ip, 1):.2f} per IP "
+          f"iteration, launches K1 {launches['gj']} K2 "
+          f"{launches['thomas']}, collectives {launches['collectives']}; "
+          f"on {smi}")
+    check((res, it, ip) == (rres, rit, rip),
+          f"{name}: {res} at {it} / {ip} vs reference {ref}")
+    check(abs(f - rf) <= USER_F_RTOL * abs(rf),
+          f"{name}: f = {f} vs reference {rf}")
+    return f, launches
+
+
+def phase_22(smi):
+    """The MEX and Simulink-coder hosts and the sharded KKT backend on the
+    card (see the module docstring); returns the kernels JSON's entries of
+    K1 ("gj") and K2 ("thomas", where the master runs it) at the sharded
+    solve's shapes."""
+    import ctypes
+    import os
+
+    import torch.distributed as dist
+
+    import hqp_tpu_torch.models.hxi_suite  # noqa: F401  (DID_MEX)
+    from hqp_tpu_torch.hxi import mex, sfunction, simulink
+    from hqp_tpu_torch.models.did import PrgDID
+    from hqp_tpu_torch.ops import gj_cuda, thomas_cuda
+    from hqp_tpu_torch.parallel import distributed, sharded_kkt
+    from hqp_tpu_torch.utils.registry import modules
+
+    # (a) the demo S-function both ways and the MEX host library
+    t0 = time.perf_counter()
+    src = os.path.join(simulink.SIMULINK_DIR, "sfun_did_demo.c")
+    paths = [simulink.build_sfunction(src), mex.build_mex_sfunction(src)]
+    mex._host_lib()
+    built = ", ".join(f"{k} built={v['built']} {v['seconds']:.2f} s"
+                      for k, v in sfunction.INFO.items()
+                      if k.startswith(("sfun_did_demo", "libhximex")))
+    print(f"[22a] sfun_did_demo.c built both ways and the MEX host in "
+          f"{time.perf_counter() - t0:.2f} s ({built}) -> "
+          f"{', '.join(paths)}")
+    check(hasattr(ctypes.CDLL(paths[1]), "mexFunction") and not hasattr(
+        ctypes.CDLL(paths[1]), "hxi_mdlOutputs"),
+        "the MEX build exports more than mexFunction")
+    cg = simulink.SimulinkSFunction(paths[0], params=[0.001])
+    mx = mex.MexSFunction(paths[1], args="[0.001]")
+    for k in range(4):
+        for sf in (cg, mx):
+            sf.set_inputs([0.5 - 0.25 * k])
+            sf.update(t=0.001 * k)
+        check(np.array_equal(cg.xd, mx.xd) and np.array_equal(
+            cg.outputs(), mx.outputs()), "the two builds drive apart")
+
+    # (b) DID_MEX on the card
+    fs = {}
+    with KernelSpy() as spy, QPDevices() as qd:
+        for name, (pkw, skw, sim) in MEX_CASES.items():
+            spy.case = name
+            prg = modules.create("prg_name", "DID_MEX", **pkw, device=DEVICE)
+            fs[name], launches = drive22("b", name, prg, skw, sim,
+                                         REF_MEX[name], smi)
+        check(launches["gj"]["tile"] > 0 and launches["thomas"] > 0,
+              f"DID_MEX-1000 skipped a kernel: {launches}")
+    print(f"[22b] devices of the QP tensors and iterates: "
+          f"{sorted(qd.devices)}")
+    check(qd.devices == {DEVICE}, f"a QP left the card: {qd.devices}")
+    spy.hold(22)
+    f = fs["DID_MEX-1000"]
+    check(abs(f - REF_F_DID1000) <= 1e-6 * REF_F_DID1000,
+          f"DID_MEX-1000: f = {f} vs DID-1000's {REF_F_DID1000}")
+    print(f"[22b] DID_MEX-1000 {f!r} / DID-1000 {REF_F_DID1000!r}; "
+          f"DID_MEX {fs['DID_MEX']!r} / DID_SFunction "
+          f"{REF_HOSTED['DID_SFunction'][1]!r}")
+
+    # (c) DID-1000 by qp_mat_solver SpSCdist at world size 1 on nccl
+    check(distributed.init_distributed(world_size=1, device=DEVICE),
+          "no process group")
+    try:
+        print(f"[22c] {distributed.process_summary()}")
+        mesh = distributed.global_mesh(("sp",))
+        be = modules.create("qp_mat_solver", "SpSCdist", mesh)
+        check(type(be) is sharded_kkt.ShardedPartitionedKKT, "SpSCdist")
+        with KernelSpy() as spy, QPDevices() as qd:
+            spy.case = "SpSCdist DID-1000"
+            prg = PrgDID(kmax=1000, device=DEVICE)
+            f, launches = drive22("c", spy.case, prg,
+                                  dict(max_iters=50, qp_eps=QP_EPS_DID1000),
+                                  True,
+                                  REF_SHARD, smi, kkt_backend=be)
+        check(qd.devices == {DEVICE}, f"a QP left the card: {qd.devices}")
+        key = ("K1", SHARD_K1, 4, torch.float64)
+        check(key in spy.inputs and launches["gj"]["tile"] > 0,
+              f"K1 at {SHARD_K1}: {launches}, {list(spy.inputs)}")
+        master = be._master_k()
+        check((launches["thomas"] > 0) == (master == "thomas"),
+              f"the master ({master}) and K2's launches {launches}")
+        print(f"[22c] SpSCdist DID-1000's master: {master}; f {f!r} / "
+              f"DID-1000's {REF_F_DID1000!r}")
+        spy.hold(22)
+        # K1 and K2 timed on the case's own first inputs
+        _, M, B = spy.inputs[key]
+        out, ref = gj_cuda.interior_factor(M, B), \
+            gj_cuda.interior_factor_plain(M, B)
+        rows = {}
+        t = time_gj(M, B, "gj_interior_kernel")
+        show(22, "gj", t, f"f64, K1 register kernel, P={M.shape[0]}, "
+             f"s={M.shape[-1]}, b={B.shape[-1]} (SpSCdist DID-1000's "
+             f"interiors at one rank), on {smi}")
+        rows["gj"] = (M.shape, launches["gj"]["tile"],
+                      (out[0] - ref[0]).abs().max(), t)
+        kth = [k for k in spy.inputs if k[0] == "K2"]
+        if kth:
+            _, D, U, r = spy.inputs[kth[0]]
+            x, xr = thomas_cuda.thomas_solve(D, U, r), \
+                thomas_cuda.thomas_solve_plain(D, U, r)
+            t = time_thomas(D, U, r)
+            show(22, "thomas", t, f"f64, K2, N={D.shape[0]}, n="
+                 f"{D.shape[-1]} (SpSCdist DID-1000's master), on {smi}")
+            rows["thomas"] = (D.shape, launches["thomas"],
+                              (x - xr).abs().max(), t)
+    finally:
+        dist.destroy_process_group()
+    return {k: {"shape": list(shape), "launches": n,
+                "max_abs_err": float(err), "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+                "device_ms": t["device_ms"], "single_ms": t["single_ms"]}
+            for k, (shape, n, err, t) in rows.items()}
+
 def main():
     # -- 1. device and toolchain -----------------------------------------
     if not torch.cuda.is_available():
@@ -2369,6 +2578,10 @@ def main():
     phase_21(smi)
     clock(21)
 
+    # -- 22. the MEX and Simulink-coder hosts, sharding ---------------------------
+    sharded = phase_22(smi)
+    clock(22)
+
     def row(key, name, replaces):
         t = times[key]
         return {"name": name, "route": "cuda",
@@ -2381,13 +2594,16 @@ def main():
 
     # "scenarios": the same kernel at the scenario batch's shapes, with its
     # launches in one warm batched solve
+    # "sharded": at SpSCdist DID-1000's shapes, with its launches there
     kernels = [dict(row("gj", "gj_interior", "hqp_tpu/ops/gj_pallas.py:138"),
-                    scenarios=batch["gj"]),
+                    scenarios=batch["gj"], sharded=sharded["gj"]),
                dict(row("gj_large", "gj_interior_large",
                         "hqp_tpu/ops/gj_pallas.py:138"), cluster=cluster),
                dict(row("thomas", "thomas",
                         "hqp_tpu/ops/thomas_pallas.py:128"),
-                    scenarios=batch["thomas"])]
+                    scenarios=batch["thomas"],
+                    **({"sharded": sharded["thomas"]} if "thomas" in sharded
+                       else {}))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

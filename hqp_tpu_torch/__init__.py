@@ -41,13 +41,20 @@ has an obvious counterpart in the JAX reference package:
   hxi/       hosting of external models: the Python SimStruct
              (``PySimStruct``, ``PySFunctionHost``), compiled S-functions
              (``SFunction``; ``compile_sfunction`` builds a .c source
-             against ``csrc/hxi/`` with cc into ``build/``) and FMI 2.0
-             FMUs (``Fmu``, ``build_test_fmu``)
+             against ``csrc/hxi/`` with cc into ``build/``), FMI 2.0
+             FMUs (``Fmu``, ``build_test_fmu``), and level-2 Simulink
+             S-functions compiled against the SimStruct emulation of
+             ``csrc/hxi_simulink/`` (``simulink``: the cg_sfun build,
+             ``SimulinkSFunction``; ``mex``: the MEX build driven through
+             ``mexFunction``, ``MexSFunction``, ``MexEvaluator``; the
+             parameter text parser ``mx_parse``)
   models/    ``PrgDID``, ``PrgCrane`` and the odc suite (``omu_suite``:
              ``PrgBatchReactor``, ``PrgBio``, ``PrgTP383omu``,
              ``PrgHS99omu``, ``PrgCranePar``), registered under
              ``prg_name`` as DID, Crane, BatchReactor, Bio, TP383omu,
-             HS99omu and CranePar; the NLP suite (``nlp_suite``:
+             HS99omu and CranePar; the hosted suite (``hxi_suite``:
+             DID_SFunction, DID_MEX, DIC, DIC_SFunction, DIC_FMU); the
+             NLP suite (``nlp_suite``:
              TP383, Maratos, HS99) and the generated families
              (``nlp_gen``: LQBlend, Broydn3d, Bdqrtic, Catena, SRosenbr,
              and ``solve_generated``); the SIF reader (``sif``:
@@ -55,7 +62,14 @@ has an obvious counterpart in the JAX reference package:
   parallel/  ``scenarios``: whole QP solves over a leading scenario axis
              (``batched_qp``, ``make_scenario_init``,
              ``make_scenario_step``, ``make_scenario_solve``; BASELINE
-             config 5), one host loop over the batch
+             config 5), one host loop over the batch, and the batch's
+             split over the ranks of a mesh (``make_mesh``,
+             ``shard_batch``, ``gather_batch``); ``distributed``:
+             ``torch.distributed`` groups and device meshes
+             (``init_distributed``, ``global_mesh``,
+             ``process_summary``); ``sharded_kkt``:
+             ``ShardedPartitionedKKT`` (qp_mat_solver SpSCdist), the
+             partitions split over the ranks
   utils/     registry, masked reductions over dataclasses of tensors
              (per problem of a batch too), counted host reads, the
              least-squares multiplier start

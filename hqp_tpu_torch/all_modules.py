@@ -27,3 +27,4 @@ import hqp_tpu_torch.qp.kkt_partitioned
 import hqp_tpu_torch.qp.kkt_sparse_host
 import hqp_tpu_torch.mip.branch_bound
 import hqp_tpu_torch.qp.client
+import hqp_tpu_torch.parallel.sharded_kkt

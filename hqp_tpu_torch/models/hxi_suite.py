@@ -4,10 +4,10 @@ Port of ``hqp_tpu/models/hxi_suite.py``: the reference's S-function/FMU
 example problems from odc/runallhxi: DID_SFunction (discrete double
 integrator through the binary S-function path, odc/did_sfunction.tcl +
 odc/sfun_did.c), DIC_SFunction (continuous double integrator,
-odc/sfun_dic.c), and the FMU variant (odc/dic_fmu_est.tcl role).  Each
-solves the same optimal control problem as its native twin (DID, DIC), so
-objective parity between the native and hosted paths is directly
-testable.  Not ported yet: DID_MEX, which waits for the MEX host.
+odc/sfun_dic.c), DID_MEX (DID through a MEX-built S-function), and the
+FMU variant (odc/dic_fmu_est.tcl role).  Each solves the same optimal
+control problem as its native twin (DID, DIC), so objective parity
+between the native and hosted paths is directly testable.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from hqp_tpu_torch.hxi.fmu import Fmu, build_test_fmu
+from hqp_tpu_torch.hxi.mex import MexEvaluator, demo_mex_path
 from hqp_tpu_torch.hxi.sfunction import SFunction, demo_sfunction_path
 from hqp_tpu_torch.models.did import PrgDID
 from hqp_tpu_torch.omu.hosted import HostedModel
@@ -36,6 +37,28 @@ class PrgDIDSFunction(PrgDID):
                  device="cuda"):
         super().__init__(kmax=kmax, with_cns=with_cns, device=device)
         ev = SFunction(demo_sfunction_path("sfun_did"), params=[[self.dt]])
+        self.hosted = HostedModel(ev)
+
+    def f(self, k, x, u):
+        return self.hosted.dt_update(k * self.dt, x, u, ())
+
+
+@modules.register("prg_name", "DID_MEX")
+class PrgDIDMex(PrgDID):
+    """DID solved through a MEX-BUILT S-function: the in-tree demo
+    source (csrc/hxi_simulink/sfun_did_demo.c) compiled with
+    -DMATLAB_MEX_FILE exports only ``mexFunction``; the hosting goes
+    through the method-table protocol (hqp_tpu_torch.hxi.mex, the
+    Hxi_MEX_SFunction role).  The parameter arrives as MATLAB-style
+    argument text through the mx parser (Hxi_mx_parse role), the text the
+    reference writes, so dt reaches the model bit for bit."""
+
+    name = "DID_MEX"
+
+    def __init__(self, kmax: int = 60, with_cns: bool = True,
+                 device="cuda"):
+        super().__init__(kmax=kmax, with_cns=with_cns, device=device)
+        ev = MexEvaluator(demo_mex_path(), args=f"[{self.dt}]")
         self.hosted = HostedModel(ev)
 
     def f(self, k, x, u):

@@ -10,16 +10,74 @@ scenario frozen at its own result, with every partition interior of the
 batch in one K1 launch per factorization and every master in one K2
 launch per master solve (:mod:`hqp_tpu_torch.qp.kkt_partitioned`).  The
 reference's ``batched_safe`` has no counterpart: the port's kernels take
-the batch as it is.  The device mesh (``make_mesh``, ``shard_batch``)
-belongs to the sharding slice.
+the batch as it is.  The mesh half (``make_mesh``, ``shard_batch``) runs
+over ``torch.distributed`` (:mod:`hqp_tpu_torch.parallel.distributed`):
+each rank keeps its slice of the batch's leading axis as a plain tensor on
+its own device and solves it; ``gather_batch`` puts the rows back together
+on every rank.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+from torch.utils._pytree import tree_map
 
+from hqp_tpu_torch.parallel.distributed import (mesh_device_type,
+                                                near_square, need_group)
 from hqp_tpu_torch.qp.presolve import (merge_parallel_rows,
                                        original_row_violation)
+
+
+def make_mesh(n_devices=None, axes=("dp",)):
+    """A device mesh over the first ``n_devices`` ranks (all by default);
+    two axes split them into near-square factors.  Every rank of the
+    group makes the call (a mesh makes its process groups collectively)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    need_group()
+    n = n_devices or dist.get_world_size()
+    shape = (n,) if len(axes) == 1 else (near_square(n),
+                                          n // near_square(n))
+    return DeviceMesh(mesh_device_type(), torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def shard_batch(tree, mesh, axis_name="dp"):
+    """This rank's slice of a batched tree's leading axis, on the mesh's
+    device: rank i of the axis's n keeps rows [i B/n, (i+1) B/n).  B must
+    divide evenly, as a sharded placement in the reference requires."""
+    n = mesh.shape[mesh.mesh_dim_names.index(axis_name)]
+    i = mesh.get_local_rank(axis_name)
+    dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device("cpu")
+
+    def part(a):
+        if a.shape[0] % n:
+            raise ValueError(f"a batch of {a.shape[0]} does not split over "
+                             f"{n} ranks of '{axis_name}'")
+        b = a.shape[0] // n
+        return a[i * b:(i + 1) * b].to(dev)
+
+    return tree_map(part, tree)
+
+
+def gather_batch(tree, mesh, axis_name="dp"):
+    """The inverse of :func:`shard_batch`: every rank's slice put back in
+    rank order, on every rank (one all_reduce per leaf of the zero-padded
+    whole; a leaf's dtype must be one the backend sums)."""
+    n = mesh.shape[mesh.mesh_dim_names.index(axis_name)]
+    i = mesh.get_local_rank(axis_name)
+    group = mesh.get_group(axis_name)
+
+    def whole(a):
+        b = a.shape[0]
+        out = a.new_zeros((n * b,) + tuple(a.shape[1:]))
+        out[i * b:(i + 1) * b] = a
+        dist.all_reduce(out, group=group)
+        return out
+
+    return tree_map(whole, tree)
 
 
 def batched_qp(prg, base_v, n_scenarios, scale=1e-3, generator=None, seed=0):

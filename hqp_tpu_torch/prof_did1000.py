@@ -7,6 +7,8 @@ scenarios, a hosted model).
     python -m hqp_tpu_torch.prof_did1000 --program LQBlend [--kmax 2000]
     python -m hqp_tpu_torch.prof_did1000 --program Scenarios256 [--kmax 256]
     python -m hqp_tpu_torch.prof_did1000 --program SFunctionOpt [--kmax 1000]
+    python -m hqp_tpu_torch.prof_did1000 --program DIDMex [--kmax 1000]
+    python -m hqp_tpu_torch.prof_did1000 --program SpSCdist [--kmax 1000]
 
 Phases, each printed on lines of its own:
   1. chained KKT factor+solve links at the point of ``bench.py``'s
@@ -45,7 +47,12 @@ K = kmax (chip_smoke.py phase 19's SFunctionOpt-1000: the soft-constraint
 problem with u_order = 1 and slack controls; init, solve), with the hosted
 model's batches ("hosted callbacks": the copy of a batch of stages to the
 host, the C calls and finite differences there, the copy back) split out
-of make_qp and the line search.  Phase 3 needs a CUDA device
+of make_qp and the line search.  ``--program DIDMex`` runs them on
+DID through the MEX-built demo S-function (``prg_name DID_MEX``, DID's
+settings), with its hosted callbacks split out; ``--program SpSCdist`` on
+DID with ``qp_mat_solver SpSCdist`` (ShardedPartitionedKKT over a one-rank
+process group made without a launcher), with its collectives split out
+of the KKT factor and solve.  Phase 3 needs a CUDA device
 and is skipped
 with ``--device cpu``, where the script serves only to check itself at a
 small ``--kmax``.
@@ -61,16 +68,19 @@ import time
 import types
 
 import torch
+import torch.distributed as dist
 
 from hqp_tpu_torch.docp.nlp import Nlp
 from hqp_tpu_torch.docp.program import Docp
 from hqp_tpu_torch.hxi.sfunction import SFunction, demo_sfunction_path
 from hqp_tpu_torch.models.crane import PrgCrane
 from hqp_tpu_torch.models.did import PrgDID
+from hqp_tpu_torch.models.hxi_suite import PrgDIDMex
 from hqp_tpu_torch.models.nlp_gen import generated_solver
 from hqp_tpu_torch.omu import hosted, integrators
 from hqp_tpu_torch.omu.dynamic_opt import DynamicOpt
-from hqp_tpu_torch.parallel import scenarios
+from hqp_tpu_torch.parallel import distributed, scenarios
+from hqp_tpu_torch.parallel.sharded_kkt import ShardedPartitionedKKT
 from hqp_tpu_torch.qp import kkt as K_
 from hqp_tpu_torch.qp import kkt_sparse_host as sparse_host
 from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
@@ -215,10 +225,10 @@ def sfunction_opt(kmax, device):
 
 
 def solve_once(kmax, device, program="DID"):
-    """One init/simulate/solve: DID at the recorded reference runs'
-    qp_eps = 1e-7 (ROADMAP Q3 R7), Crane at the defaults, LQBlend as
-    solve_generated runs it (n = kmax); SFunctionOpt by init/solve; or one
-    scenario batch."""
+    """One init/simulate/solve: DID (also DIDMex and SpSCdist) at the
+    recorded reference runs' qp_eps = 1e-7 (ROADMAP Q3 R7), Crane at the
+    defaults, LQBlend as solve_generated runs it (n = kmax); SFunctionOpt
+    by init/solve; or one scenario batch."""
     if program == "Scenarios256":
         return scenario_solve(kmax, device)
     if program == "SFunctionOpt":
@@ -231,6 +241,14 @@ def solve_once(kmax, device, program="DID"):
                       max_iters=100)
     elif program == "LQBlend":
         s = generated_solver("lqblend", n=kmax, device=device)
+    elif program == "DIDMex":
+        s = SqpPowell(PrgDIDMex(kmax=kmax, device=device), max_iters=50,
+                      qp_eps=1e-7)
+    elif program == "SpSCdist":
+        distributed.init_distributed(world_size=1, device=device)
+        be = ShardedPartitionedKKT(distributed.global_mesh(("sp",)))
+        s = SqpPowell(PrgDID(kmax=kmax, device=device), kkt_backend=be,
+                      max_iters=50, qp_eps=1e-7)
     else:
         s = SqpPowell(PrgDID(kmax=kmax, device=device), max_iters=50,
                       qp_eps=1e-7)
@@ -263,8 +281,13 @@ def layer_split(kmax, device, program):
         lt.wrap(PartitionedKKT, "factor", "KKT factor")
         lt.wrap(PartitionedKKT, "solve", "KKT solve")
     else:
-        if program == "SFunctionOpt":
+        if program in ("SFunctionOpt", "DIDMex"):
             lt.wrap(hosted._HostFn, "run", "hosted callbacks")
+        if program == "SpSCdist":
+            lt.wrap(ShardedPartitionedKKT, "factor", "KKT factor")
+            lt.wrap(ShardedPartitionedKKT, "solve", "KKT solve")
+            lt.wrap(ShardedPartitionedKKT, "_all_reduce",
+                    "collectives (all_reduce)")
         if program == "CraneDopri5":
             lt.wrap(integrators._Loop, "run", "integrator loop (values)")
             lt.wrap(integrators._Loop, "run_jac",
@@ -378,11 +401,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--program",
                     choices=("DID", "Crane", "CraneDopri5", "LQBlend",
-                             "Scenarios256", "SFunctionOpt"),
+                             "Scenarios256", "SFunctionOpt", "DIDMex",
+                             "SpSCdist"),
                     default="DID")
     ap.add_argument("--kmax", type=int, default=None,
-                    help="stages (default 1000 for DID and SFunctionOpt, "
-                    "50 for Crane and CraneDopri5), "
+                    help="stages (default 1000 for DID, SFunctionOpt, "
+                    "DIDMex and SpSCdist, 50 for Crane and CraneDopri5), "
                     "LQBlend's n (default 2000), or the scenarios of the "
                     "batch (default 256)")
     ap.add_argument("--device", default="cuda")
@@ -391,7 +415,8 @@ def main():
     kmax = args.kmax or {"DID": 1000, "Crane": 50, "CraneDopri5": 50,
                          "LQBlend": 2000,
                          "Scenarios256": 256,
-                         "SFunctionOpt": 1000}[args.program]
+                         "SFunctionOpt": 1000, "DIDMex": 1000,
+                         "SpSCdist": 1000}[args.program]
     if args.device == "cuda":
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -404,6 +429,8 @@ def main():
         device_trace(kmax, args.device, args.program)
     if did:
         default_eps(kmax, args.device)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

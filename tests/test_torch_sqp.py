@@ -13,6 +13,8 @@ import json
 import os
 import subprocess
 import sys
+import time
+import types
 
 import numpy as np
 import pytest
@@ -55,6 +57,121 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+#: runs in a fresh interpreter on the CPU: for each name of argv[3:],
+#: ``reference_result(name)`` of the test module argv[1] (a dict of arrays)
+#: saved as argv[2]/<name>.npz (written under another name, then renamed)
+_BACKGROUND = r"""
+import importlib, os, sys
+os.environ["JAX_PLATFORMS"] = "cpu"
+import jax
+jax.config.update("jax_platforms", "cpu")
+import numpy as np
+import torch
+torch.set_num_threads(1)
+mod = importlib.import_module(sys.argv[1])
+for name in sys.argv[3:]:
+    out = os.path.join(sys.argv[2], name)
+    np.savez(out + ".part.npz", **mod.reference_result(name))
+    os.replace(out + ".part.npz", out + ".npz")
+"""
+
+
+def lower_priority():
+    """``preexec_fn`` of the interpreters a test file starts beside its
+    tests: a lower scheduling priority, so that they take the cores the
+    test workers leave idle and slow the tests down as little as they
+    can."""
+    os.nice(10)
+
+
+class Background:
+    """The JAX package's side of a test module's slowest comparisons, in
+    interpreters of their own started with the module's first test, so
+    that they run on the host's idle cores beside the other tests (the
+    tests then compare the port with what they computed, as they would
+    with the same computation made inline).  ``groups``: the names each
+    interpreter computes in turn, by the module's ``reference_result``;
+    only the names some selected test of the module asks for (``wants``:
+    test name -> names) are started."""
+
+    def __init__(self, request, groups, wants, tmp):
+        chosen = set()
+        for it in request.session.items:
+            if it.module is request.module:
+                chosen.update(wants.get(getattr(it, "originalname", ""),
+                                        ()))
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        self.dir = str(tmp)
+        self.procs = {}
+        for names in groups:
+            names = [n for n in names if n in chosen]
+            if not names:
+                continue
+            proc = subprocess.Popen(
+                [sys.executable, "-c", _BACKGROUND, "tests." + os.path.splitext(
+                    os.path.basename(request.module.__file__))[0],
+                 self.dir, *names], cwd=root,
+                env=dict(os.environ, PYTHONPATH=root),
+                stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True,
+                preexec_fn=lower_priority)
+            self.procs.update((n, proc) for n in names)
+
+    def result(self, name, timeout=900):
+        """The saved result of ``name``: waits for it, and fails with the
+        interpreter's errors if it ended without it."""
+        path = os.path.join(self.dir, name + ".npz")
+        proc = self.procs[name]
+        t0 = time.monotonic()
+        while not os.path.exists(path):
+            if proc.poll() is not None and not os.path.exists(path):
+                pytest.fail(f"reference {name}: {proc.communicate()[1]}")
+            if time.monotonic() - t0 > timeout:
+                pytest.fail(f"reference {name} took over {timeout} s")
+            time.sleep(0.2)
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+
+    def close(self):
+        for proc in set(self.procs.values()):
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+
+
+#: the comparisons of this module whose JAX side runs in the background:
+#: the interpreters' names in turn, and the names each test reads
+BACKGROUND_GROUPS = (
+    ["did60_qp", "knob-cheap_predictor", "knob-gondzio_correctors=2",
+     "knob-init_method=1"],
+    ["knob-init_method=2", "knob-init_method=3", "knob-mod_terlaky"],
+    ["Franke", "Schittkowski"])
+BACKGROUND_WANTS = {
+    "test_mehrotra_knob_matches_reference": [
+        n for g in BACKGROUND_GROUPS[:2] for n in g],
+    "test_did60_alt_solvers_match_reference": BACKGROUND_GROUPS[2]}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def background(request, tmp_path_factory):
+    """This module's Background (BACKGROUND_GROUPS)."""
+    bg = Background(request, BACKGROUND_GROUPS, BACKGROUND_WANTS,
+                    tmp_path_factory.mktemp("references"))
+    yield bg
+    bg.close()
+
+
+def reference_result(name):
+    """The JAX package's side of a comparison of BACKGROUND_GROUPS."""
+    if name == "did60_qp":
+        qp = did60_first_qp()[0]
+        return {k: np.asarray(v) for k, v in vars(qp).items()
+                if v is not None}
+    if name.startswith("knob-"):
+        return knob_reference(name[len("knob-"):])
+    return alt_reference(name)
 
 def _c(a):
     return convert.tensor(a, device=CPU)
@@ -491,10 +608,15 @@ def test_port_imports_no_jax():
          "import hqp_tpu_torch.shell, hqp_tpu_torch.all_modules, "
          "hqp_tpu_torch.mip, hqp_tpu_torch.qp.client, "
          "hqp_tpu_torch.utils.checkpoint, hqp_tpu_torch.utils.log; "
+         "import hqp_tpu_torch.hxi.mx_parse, hqp_tpu_torch.hxi.simulink, "
+         "hqp_tpu_torch.hxi.mex, hqp_tpu_torch.parallel.distributed, "
+         "hqp_tpu_torch.parallel.sharded_kkt; "
          "from hqp_tpu_torch.utils.registry import modules; "
          "assert {'DynamicOpt', 'DynamicEst', 'SFunctionOpt', "
          "'SFunctionEst'} <= set(modules.names('prg_name')); "
          "assert modules.has('sqp_qp_solver', 'Client'); "
+         "assert modules.has('prg_name', 'DID_MEX'); "
+         "assert modules.has('qp_mat_solver', 'SpSCdist'); "
          "assert 'jax' not in sys.modules, 'jax imported'"],
         check=True, env=env, cwd=root, timeout=120)
 
@@ -602,19 +724,30 @@ def _same_solve(js, jres, ts, tres):
     _close(float(ts.f), float(js.f), 1e-15, rtol=1e-9)
 
 
-@pytest.mark.parametrize("pair", ["Franke", "Schittkowski"])
-def test_did60_alt_solvers_match_reference(pair):
-    """DID-60 (qp_eps = 1e-7, init/simulate/solve) through Powell with
-    Franke and through Schittkowski, on PartitionedKKT in the port: the
-    same verdict, SQP and IP iterations; f within 1e-9 relative."""
+def alt_reference(pair):
+    """The reference's DID-60 (qp_eps = 1e-7, init/simulate/solve)
+    through ``pair``: {res, f, iter, ip}."""
     jcls, jkw = _pairing(pair, port=False)
-    tcls, tkw = _pairing(pair, port=True)
     js, jres = _run(jcls, JPrgDID(kmax=60), True, max_iters=50, qp_eps=1e-7,
                     **jkw)
+    return dict(res=jres, f=float(js.f), iter=js.iter, ip=js.qp_iters_total)
+
+
+@pytest.mark.parametrize("pair", ["Franke", "Schittkowski"])
+def test_did60_alt_solvers_match_reference(background, pair):
+    """DID-60 (qp_eps = 1e-7, init/simulate/solve) through Powell with
+    Franke and through Schittkowski, on PartitionedKKT in the port, against
+    the reference's (:func:`alt_reference`, in the background): the same
+    verdict, SQP and IP iterations; f within 1e-9 relative."""
+    ref = background.result(pair)
+    tcls, tkw = _pairing(pair, port=True)
     ts, tres = _run(tcls, PrgDID(kmax=60, device=CPU), True, max_iters=50,
                     qp_eps=1e-7, **tkw)
-    assert jres == "optimal"
-    _same_solve(js, jres, ts, tres)
+    assert str(ref["res"]) == "optimal"
+    assert tres == str(ref["res"])
+    assert (ts.iter, ts.qp_iters_total) == (int(ref["iter"]),
+                                            int(ref["ip"]))
+    _close(float(ts.f), float(ref["f"]), 1e-15, rtol=1e-9)
 
 
 NLP_SUITE = {"TP383": (JN.PrgTP383, TN.PrgTP383),
@@ -677,8 +810,7 @@ def test_powell_watchdog_matches_reference(start, credit):
 
 
 #: the JAX package's registry entries whose modules are not ported yet
-#: (ROADMAP Q1: the MEX host, the sharded KKT backend)
-PORT_PENDING = {("prg_name", "DID_MEX"), ("qp_mat_solver", "SpSCdist")}
+PORT_PENDING = set()
 
 
 def test_registry_holds_the_exchangeable_modules():
@@ -692,9 +824,10 @@ def test_registry_holds_the_exchangeable_modules():
     ``DID_SFunction``, ``DIC``, ``DIC_SFunction``, ``DIC_FMU``; since the
     integrator slice every ``prg_integrator`` of the reference; since the
     shell slice ``mip_solver LPSolve``/``BranchBound`` and ``sqp_qp_solver
-    Client``.  After ``all_modules`` (and the modules both test files
-    import) the port's registry equals the JAX package's less the modules
-    not ported yet (PORT_PENDING); a DenseQP program gets DenseKKT from
+    Client``; since the last two slices ``prg_name DID_MEX`` and
+    ``qp_mat_solver SpSCdist``.  After ``all_modules`` (and the modules both
+    test files import) the port's registry equals the JAX package's
+    (PORT_PENDING is empty); a DenseQP program gets DenseKKT from
     SqpSolver.init."""
     import hqp_tpu.all_modules  # noqa: F401
     import hqp_tpu.parallel.sharded_kkt  # noqa: F401  (SpSCdist)
@@ -706,7 +839,7 @@ def test_registry_holds_the_exchangeable_modules():
                          "Gangster", "SparseBFGS"},
             "qp_mat_solver": {"SpSC", "LQDOCP", "DenseKKT", "Riccati",
                               "FullKKT", "RedSpBKP", "RedSpBKP_host",
-                              "SpBKP"},
+                              "SpBKP", "SpSCdist"},
             "mip_solver": {"LPSolve", "BranchBound"}}
     for slot, names in want.items():
         assert set(modules.names(slot)) == names, slot
@@ -733,6 +866,9 @@ def test_registry_holds_the_exchangeable_modules():
             ("mip_solver", "BranchBound", BranchBound),
             ("sqp_hela", "SparseBFGS", thess.SparseBFGS)):
         assert modules.create(slot, name).__class__ is cls, (slot, name)
+    from hqp_tpu_torch.parallel.sharded_kkt import ShardedPartitionedKKT
+    assert modules._factories[("qp_mat_solver", "SpSCdist")] is \
+        ShardedPartitionedKKT
     sif = os.path.join(SIF_DIR, "HS21.SIF")
     for name in ("SIF", "CUTE"):
         assert modules.create("prg_name", name, path=sif,
@@ -745,7 +881,7 @@ def test_registry_holds_the_exchangeable_modules():
     from hqp_tpu_torch.omu import dt_opt, dynamic_est, dynamic_opt
     for name, cls in (("DID_SFunction", th.PrgDIDSFunction),
                       ("DIC", th.PrgDIC), ("DIC_SFunction", th.PrgDICSFunction),
-                      ("DIC_FMU", th.PrgDICFMU)):
+                      ("DIC_FMU", th.PrgDICFMU), ("DID_MEX", th.PrgDIDMex)):
         assert modules.create("prg_name", name, device=CPU).__class__ is cls
     model = chip_smoke.user_program("dic_target", CPU).model
     est = dict(chip_smoke.USER_CASES["DTEst"][3])
@@ -1322,8 +1458,9 @@ print(json.dumps([res, float(s.f), s.iter, s.qp_iters_total]))
 @pytest.fixture(scope="module", autouse=True)
 def layout_references(request):
     """The reference's solves of REFERENCE_ONLY and PORT_ONLY, each in an
-    interpreter of its own started with this file's first test, so that
-    their compiles run on the host's idle cores beside the other tests:
+    interpreter of its own started with this file's first test at a lower
+    priority, so that their compiles run on the host's idle cores beside
+    the other tests:
     {name: Popen} (only the cases whose tests were selected).  Whatever
     still runs at the end of the file is killed."""
     selected = {it.callspec.params["name"] for it in request.session.items
@@ -1335,7 +1472,8 @@ def layout_references(request):
     procs = {name: subprocess.Popen(
         [sys.executable, "-c", _REFERENCE_ROW, name], cwd=root,
         env=dict(os.environ, PYTHONPATH=root), stdin=subprocess.DEVNULL,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        preexec_fn=lower_priority)
         for name in REFERENCE_ONLY + PORT_ONLY if name in selected}
     yield procs
     for proc in procs.values():
@@ -1494,32 +1632,48 @@ def mehrotra_reference_values(names=None):
               flush=True)
 
 
-@pytest.fixture(scope="module")
+_FIRST_QP = {}
+
+
 def did60_first_qp():
     """The JAX package's first QP of SqpPowell(PrgDID(kmax=60)) and its
     IP state (the QP of test_mehrotra_first_qp_matches_reference's kind,
-    with the path constraint)."""
-    js = JSqpPowell(JPrgDID(kmax=60), max_iters=50)
-    js.init()
-    js.qp_update()
-    return js.qp, js.ip_state
+    with the path constraint), made once per interpreter."""
+    if not _FIRST_QP:
+        js = JSqpPowell(JPrgDID(kmax=60), max_iters=50)
+        js.init()
+        js.qp_update()
+        _FIRST_QP.update(qp=js.qp, state=js.ip_state)
+    return _FIRST_QP["qp"], _FIRST_QP["state"]
+
+
+def knob_reference(knob):
+    """The reference's Mehrotra with ``knob`` on DID-60's first QP:
+    {result, iter, x}."""
+    jqp, jst = did60_first_qp()
+    ref = JMehrotra(eps=1e-9, max_iters=50,
+                    **chip_smoke.KNOB_CASES[knob]).with_backend(
+        JPartitionedKKT()).solve(jqp, jst)
+    return dict(result=int(ref.result), iter=int(ref.iter),
+                x=np.asarray(ref.x))
 
 
 @pytest.mark.parametrize("knob", sorted(chip_smoke.KNOB_CASES))
-def test_mehrotra_knob_matches_reference(did60_first_qp, knob):
+def test_mehrotra_knob_matches_reference(background, knob):
     """Each non-default knob of Mehrotra (those of chip_smoke phase 20
     (d)) on DID-60's first QP against the reference's Mehrotra with the
-    same knob: optimal at the same IP count, x within 1e-9."""
-    jqp, jst = did60_first_qp
-    kw = chip_smoke.KNOB_CASES[knob]
-    ref = JMehrotra(eps=1e-9, max_iters=50, **kw).with_backend(
-        JPartitionedKKT()).solve(jqp, jst)
-    qp = convert.stage_qp(jqp, CPU)
-    m = Mehrotra(eps=1e-9, max_iters=50, **kw).with_backend(PartitionedKKT())
+    same knob (:func:`knob_reference`, in the background): optimal at the
+    same IP count, x within 1e-9."""
+    ref = background.result("knob-" + knob)
+    qp = convert.stage_qp(types.SimpleNamespace(
+        **background.result("did60_qp")), CPU)
+    m = Mehrotra(eps=1e-9, max_iters=50,
+                 **chip_smoke.KNOB_CASES[knob]).with_backend(
+        PartitionedKKT())
     out = m.solve(qp, m.init_state(qp))
-    assert int(out.result) == int(ref.result) == 0
-    assert int(out.iter) == int(ref.iter)
-    _close(out.x, ref.x, 1e-9)
+    assert int(out.result) == int(ref["result"]) == 0
+    assert int(out.iter) == int(ref["iter"])
+    _close(out.x, ref["x"], 1e-9)
 
 
 #: the knobs in the combinations the batch test runs (every knob in one,
@@ -1862,3 +2016,96 @@ def test_shell_constructor_knobs_match_reference():
         sh.run("prg_name DID; prg_kmax 1000")
         assert sh("prg_K") == "1000" and sh.prg.K == 1000
         assert not hasattr(sh.prg, "kmax")
+
+
+# -- the MEX and Simulink-coder hosts: the mx parser and DID_MEX ------------------
+
+from hqp_tpu.hxi import mx_parse as jmx  # noqa: E402
+
+from hqp_tpu_torch.hxi import mx_parse as tmx  # noqa: E402
+
+#: tests/test_mex_sfun.py's test_mx_parse inputs, then empty, nested,
+#: multi-line and non-finite ones, then text that the parsers refuse (a
+#: ragged matrix, unterminated strings, cells and matrices, words, a
+#: parenthesised list)
+MX_TEXTS = (
+    "[1 2; 3 4], 'it''s', {1, 2}, 2.5", "[]", "[1 2; 3]",
+    "", "  ", "'a,b', [1,2;3,4]", "{[1, 2], 'x,y'}, -3e-2", "[1 2\n3 4]",
+    "[ ; 1 ; ]", "'', {}", "1e3, [inf -Inf NaN]", "{1}}",
+    "'abc", "{1, 2", "[1 2", "[1 x]", "1 2", "'a'b'", "x", "(1, 2), 3")
+
+
+def _mx_value(v):
+    """A parsed value as (kind, dtype, shape, bytes): comparable across the
+    two packages' own MxCell classes, NaN included."""
+    if isinstance(v, np.ndarray):
+        return ("array", str(v.dtype), v.shape, v.tobytes())
+    return (type(v).__name__, str(v))
+
+
+@pytest.mark.parametrize("text", MX_TEXTS)
+def test_mx_parse_matches_reference(text):
+    """The port's mx parser gives the JAX package's result case for case:
+    the same top-level split and the same values (numpy arrays bit for bit,
+    strings, MxCell cells kept as text), or the same MxParseError
+    message."""
+    out = []
+    for mod in (jmx, tmx):
+        try:
+            out.append((mod.split_args(text),
+                        [_mx_value(v) for v in mod.parse_args(text)]))
+        except mod.MxParseError as e:
+            out.append(("error", str(e)))
+    assert out[0] == out[1]
+    if text == MX_TEXTS[0]:
+        assert [k for k, *_ in out[1][1]] == ["array", "str", "MxCell",
+                                              "array"]
+    assert issubclass(tmx.MxParseError, ValueError)
+    assert issubclass(tmx.MxCell, str)
+
+
+def mex_reference_values():
+    """The JAX package's results that chip_smoke.py phase 22 holds the card
+    to, one JSON row each: [case, verdict, f, SQP, IP] of chip_smoke's
+    MEX_CASES (REF_MEX), then of DID-1000 by qp_mat_solver SpSCdist on a
+    one-device mesh with DID-1000's settings (REF_SHARD).  Run from the
+    repository root on a CPU host (about 4 minutes): ``JAX_PLATFORMS=cpu
+    python -c "import jax; jax.config.update('jax_platforms', 'cpu');
+    import tests.test_torch_sqp as t; t.mex_reference_values()"``."""
+    import hqp_tpu.all_modules  # noqa: F401  (DID_MEX)
+    from hqp_tpu.parallel.scenarios import make_mesh
+    from hqp_tpu.parallel.sharded_kkt import ShardedPartitionedKKT as JShard
+    for name, (pkw, skw, sim) in chip_smoke.MEX_CASES.items():
+        s, res = _run(JSqpPowell, jmodules.create("prg_name", "DID_MEX",
+                                                  **pkw), sim, **skw)
+        print(json.dumps([name, res, float(s.f), s.iter, s.qp_iters_total]),
+              flush=True)
+    be = JShard(make_mesh(1, axes=("sp",)), axis="sp")
+    s, res = _run(JSqpPowell, JPrgDID(kmax=1000), True, kkt_backend=be,
+                  max_iters=50, qp_eps=chip_smoke.QP_EPS_DID1000)
+    print(json.dumps(["SpSCdist DID-1000", res, float(s.f), s.iter,
+                      s.qp_iters_total]), flush=True)
+
+
+def test_did_mex60_matches_recorded_reference():
+    """DID_MEX at K = 60 (chip_smoke.MEX_CASES; the reference's
+    tests/test_mex_sfun.py solve, marked slow in its suite, recorded in
+    chip_smoke.REF_MEX by :func:`mex_reference_values`) through the port's
+    SqpPowell on the CPU: the reference's verdict and SQP/IP counts, f
+    within 1e-8 relative, and within 1e-6 of DID_SFunction's (the same
+    model through the cg_sfun interface).  dt reaches the MEX model
+    through the mx parser bit for bit: the text ``[dt]`` parses to dt in
+    both packages, and the model's sample time is dt."""
+    import hqp_tpu_torch.models.hxi_suite as th
+    pkw, skw, sim = chip_smoke.MEX_CASES["DID_MEX"]
+    prg = modules.create("prg_name", "DID_MEX", **pkw, device=CPU)
+    assert type(prg) is th.PrgDIDMex
+    text = f"[{prg.dt}]"
+    assert tmx.parse_args(text)[0][0, 0] == jmx.parse_args(text)[0][0, 0] \
+        == prg.dt == prg.hosted.ev.sample_time
+    s, res = _run(SqpPowell, prg, sim, **skw)
+    rres, rf, rit, rip = chip_smoke.REF_MEX["DID_MEX"]
+    assert (res, s.iter, s.qp_iters_total) == (rres, rit, rip)
+    _close(float(s.f), rf, 0.0, rtol=1e-8)
+    _close(float(s.f), chip_smoke.REF_HOSTED["DID_SFunction"][1], 0.0,
+           rtol=1e-6)
