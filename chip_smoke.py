@@ -126,7 +126,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the host syncs per IP iteration and, for the adaptive integrators,
      the loop iterations and host reads per make_qp; K1 and K2 launched
      in every case; then K1 and K2 on the first inputs the cases gave them
-     at each shape and dtype, against their plain twins;
+     at each shape and dtype, against their plain twins.  The Crane and
+     the Bio cases (INTEG_PARALLEL, host-bound) run in INTEG_WORKERS
+     spawned processes on the same card while the main one runs (c) and
+     (d), so their walls are taken beside one another; each worker holds
+     the kernels against their twins on its own case's first inputs;
  21. the shell slice, every program made by hqp_tpu_torch.shell.Shell on
      the card: (a) the README's quick start (DID-60) and DID-1000 through
      ``prg_name DID; prg_kmax 1000; qp_eps 1e-7; ...; hqp_solve``
@@ -160,7 +164,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      SQP/IP counts and f within 1e-8 (REF_SHARD), K1 on its [50, 98, 98]
      interiors and K2 on its master held against their twins, both timed
      there as in phase 5; (d) per solve the wall time, the host-callback
-     time, host syncs per IP iteration, launches and collectives.
+     time, host syncs per IP iteration, launches and collectives;
+ 23. PartitionedKKT's reference keywords and SpSCdist's other layout on
+     DID-1000 with qp_eps = 1e-7, each at the JAX package's verdict, SQP/IP
+     counts and f within 1e-8 (REF_KKT_KNOBS, REF_SHARD_REP): (a) gj="xla"
+     (the library inverse by the caller's word: K1 launched 0 times, K2 as
+     often as in phase 7 at the same IP count), (b) refine_relative=False,
+     refine_rounds=2, reg_corr_rounds=1 (KKT_KNOB_CASES; K1 once per
+     factorization), (c) SpSCdist with full_shard=False at world size 1
+     (K1 once per factorization on the rank's [50, 98, 98] interiors; its
+     collectives per solve beside phase 22 (c)'s); K1 and K2 held against
+     their twins on the first inputs the cases gave them; (d)
+     thomas_solve_scaled (one K2 launch) against its plain twin within
+     3e-16 relative at SCALED_SHAPES (DID-1000's master N = 101, n = 2 and
+     the crane's n = 6), timed as in phase 5.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -693,6 +710,28 @@ REF_SHARD = ("optimal", 88.91363105840014, 1, 27)
 #: K1's shape on the sharded DID-1000 at one rank: P = 50 interiors of
 #: s = 98 with b = 4 couplings
 SHARD_K1 = (50, 98, 98)
+
+
+#: phase 23 (a)-(b): DID-1000 with DID-1000's settings through
+#: PartitionedKKT with the reference's backend keywords: name -> keywords
+KKT_KNOB_CASES = {
+    "gj=xla": {"gj": "xla"},
+    "refine_relative=False": {"refine_relative": False, "refine_rounds": 2,
+                              "reg_corr_rounds": 1},
+}
+#: the JAX package's (verdict, f, SQP, IP) of KKT_KNOB_CASES, and of
+#: DID-1000 by ShardedPartitionedKKT(full_shard=False) on a one-device mesh
+#: (its master by cyclic reduction), on a CPU host in f64
+#: (kkt_knob_reference_values() in tests/test_torch_sqp.py)
+REF_KKT_KNOBS = {
+    "gj=xla": ("optimal", 88.91363105840026, 1, 27),
+    "refine_relative=False": ("optimal", 88.91362606998236, 1, 30),
+}
+REF_SHARD_REP = ("optimal", 88.91363105840014, 1, 27)
+#: phase 23 (d): thomas_solve_scaled's systems (N, n), DID-1000's master
+#: and the crane's, held to its plain twin within SCALED_RTOL (relative)
+SCALED_SHAPES = ((101, 2), (101, 6))
+SCALED_RTOL = 3e-16
 
 
 def register_int_demo():
@@ -1908,27 +1947,73 @@ def integ_drive(part, name, make, ref, smi):
     return launches
 
 
+#: phase 20's solves that run in worker processes beside the main one
+#: (the host-bound Bio and Crane cases), longest first as measured on the
+#: card, and the number of workers
+INTEG_PARALLEL = ("Bio-BDFVarOrder", "Bio-BDFKrylov", "Bio-IMPAdaptive",
+                  "Bio-BDFAdaptive", "Bio-GRK4Adaptive", "Bio-SDIRK",
+                  "Crane-Dopri5", "Bio-BDF", "Bio-GRK4")
+INTEG_WORKERS = 4
+
+
+def integ_case(name, smi):
+    """The solves of INTEG_CASES[name] (the Crane cold, then warm in the
+    same process) on the card."""
+    prg = INTEG_CASES[name][0]
+    part = {"Crane": "a", "Bio": "b", "DIC": "c"}[prg]
+    for run in (("cold", "warm") if prg == "Crane" else ("",)):
+        integ_drive(part, f"{name} {run}".strip(),
+                    lambda: integ_solver(name, DEVICE), REF_INTEG[name], smi)
+
+
+def integ_worker(name, smi):
+    """One case of INTEG_PARALLEL in a worker process: its solves, then the
+    kernels held against their twins on the case's own first inputs;
+    returns (what it printed, the QP devices, the failure or None)."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    devices, failed = set(), None
+    try:
+        with contextlib.redirect_stdout(out):
+            with KernelSpy() as spy, QPDevices() as qd:
+                spy.case = name
+                integ_case(name, smi)
+            devices = qd.devices
+            spy.hold(20)
+    except SystemExit as e:
+        failed = str(e)
+    return out.getvalue(), devices, failed
+
+
 def phase_20(smi):
     """The rest of the integrators and Mehrotra's knobs on the card (see
-    the module docstring)."""
-    with KernelSpy() as spy, QPDevices() as qd:
-        for name, (prg, *_) in INTEG_CASES.items():
-            part = {"Crane": "a", "Bio": "b", "DIC": "c"}[prg]
-            runs = ("cold", "warm") if prg == "Crane" else ("",)
-            for run in runs:
-                spy.case = name
-                integ_drive(part, f"{name} {run}".strip(),
-                            lambda: integ_solver(name, DEVICE),
-                            REF_INTEG[name], smi)
-        for name in KNOB_CASES:
-            spy.case = f"DID-1000 {name}"
-            integ_drive("d", f"DID-1000 {name}",
-                        lambda: knob_solver(name, DEVICE), REF_KNOBS[name],
-                        smi)
-    print(f"[20] devices of the QP tensors and iterates: "
-          f"{sorted(qd.devices)}")
-    check(qd.devices == {DEVICE}, f"a QP left the card: {qd.devices}")
-    spy.hold(20)
+    the module docstring): INTEG_PARALLEL's cases in INTEG_WORKERS spawned
+    processes, the others here meanwhile."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(INTEG_WORKERS) as pool:
+        jobs = [pool.apply_async(integ_worker, (name, smi))
+                for name in INTEG_PARALLEL]
+        with KernelSpy() as spy, QPDevices() as qd:
+            for name in INTEG_CASES:
+                if name not in INTEG_PARALLEL:
+                    spy.case = name
+                    integ_case(name, smi)
+            for name in KNOB_CASES:
+                spy.case = f"DID-1000 {name}"
+                integ_drive("d", f"DID-1000 {name}",
+                            lambda: knob_solver(name, DEVICE),
+                            REF_KNOBS[name], smi)
+        spy.hold(20)
+        devices = set(qd.devices)
+        for name, job in zip(INTEG_PARALLEL, jobs):
+            text, dev, failed = job.get()
+            print(text, end="")
+            check(failed is None, f"{name} in its worker: {failed}")
+            devices |= dev
+    print(f"[20] devices of the QP tensors and iterates: {sorted(devices)}")
+    check(devices == {DEVICE}, f"a QP left the card: {devices}")
 
 
 def shell_drive(part, name, sh, step, ref, smi, whole=False):
@@ -2135,7 +2220,7 @@ def phase_21(smi):
 
 
 
-def drive22(part, name, prg, skw, sim, ref, smi, **kw):
+def drive22(part, name, prg, skw, sim, ref, smi, phase=22, **kw):
     """One solve of phase 22 on the card, every counter set to 0 just
     before it: SqpPowell(prg, **skw, **kw), init(), [simulate()], solve(),
     held to ``ref`` = (verdict, f, SQP, IP) with f within USER_F_RTOL.
@@ -2171,7 +2256,7 @@ def drive22(part, name, prg, skw, sim, ref, smi, **kw):
                 "collectives": sharded_kkt.COLLECTIVES}
     f, it, ip = float(s.f), s.iter, s.qp_iters_total
     rres, rf, rit, rip = ref
-    print(f"[22{part}] {name}: {res}, f = {f!r} (reference {rf!r}, rel "
+    print(f"[{phase}{part}] {name}: {res}, f = {f!r} (reference {rf!r}, rel "
           f"{abs(f - rf) / abs(rf):.1e}), SQP/IP {it} / {ip} (reference "
           f"{rit} / {rip}), {secs * 1e3:.1f} ms wall, host callbacks "
           f"{lt.excl['hosted'] * 1e3:.1f} ms in {lt.calls['hosted']} "
@@ -2263,6 +2348,7 @@ def phase_22(smi):
                                   True,
                                   REF_SHARD, smi, kkt_backend=be)
         check(qd.devices == {DEVICE}, f"a QP left the card: {qd.devices}")
+        COUNTS["22c"] = launches["collectives"]
         key = ("K1", SHARD_K1, 4, torch.float64)
         check(key in spy.inputs and launches["gj"]["tile"] > 0,
               f"K1 at {SHARD_K1}: {launches}, {list(spy.inputs)}")
@@ -2301,6 +2387,162 @@ def phase_22(smi):
                 "bound_by": t["bound"][1], "library_ms": t["library_ms"],
                 "device_ms": t["device_ms"], "single_ms": t["single_ms"]}
             for k, (shape, n, err, t) in rows.items()}
+
+#: counts one phase reads from another: the collectives of phase 22 (c)
+COUNTS = {}
+
+
+class FactorCount:
+    """Counts the factorizations of PartitionedKKT and of its sharded
+    subclass while active (a context manager): ``n``."""
+
+    def __enter__(self):
+        from hqp_tpu_torch.parallel.sharded_kkt import ShardedPartitionedKKT
+        from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
+        self.n = 0
+        self._fns = [(c, c.__dict__["factor"])
+                     for c in (PartitionedKKT, ShardedPartitionedKKT)]
+        for cls, fn in self._fns:
+            def factor(be, *a, _fn=fn):
+                self.n += 1
+                return _fn(be, *a)
+            cls.factor = factor
+        return self
+
+    def __exit__(self, *exc):
+        for cls, fn in self._fns:
+            cls.factor = fn
+
+
+def time_thomas_scaled(D, U, d, r):
+    """``measure`` for thomas_solve_scaled (K2) on one system; the
+    yardstick is the dense torch.linalg.solve of the original system
+    diag(1/d) T diag(1/d); the bound counts K2's work plus reading d and
+    its two products."""
+    from hqp_tpu_torch.ops import thomas_cuda
+    N, n = D.shape[-3], D.shape[-1]
+    T = tridiag_dense(D.reshape(N, n, n), U.reshape(N - 1, n, n))
+    di = 1.0 / d.reshape(-1)
+    A, rv = di[:, None] * T * di[None, :], r.reshape(-1, 1)
+
+    def run():
+        return thomas_cuda.thomas_solve_scaled(D, U, d, r)
+
+    check(rel_err(torch.linalg.solve(A, rv).reshape(r.shape), run())
+          < 1e-10, "thomas_solve_scaled's yardstick solves another system")
+    el = torch.finfo(D.dtype).bits // 8
+    return measure(run, lambda: thomas_cuda.thomas_solve_scaled_plain(
+        D, U, d, r), lambda: torch.linalg.solve(A, rv), "thomas_kernel",
+        bound((D.numel() + U.numel() + 3 * r.numel()) * el,
+              D.numel() // (n * n) * (8 * n ** 3 + 6 * n * n + n)
+              + 2 * r.numel(), D.dtype))
+
+
+def phase_23(smi):
+    """PartitionedKKT's reference keywords, SpSCdist's full_shard=False and
+    thomas_solve_scaled on the card (see the module docstring); returns the
+    kernels JSON's entries of thomas_solve_scaled, one per SCALED_SHAPES."""
+    import torch.distributed as dist
+
+    from hqp_tpu_torch.models.did import PrgDID
+    from hqp_tpu_torch.ops import blocktri, thomas_cuda
+    from hqp_tpu_torch.parallel import distributed, sharded_kkt
+    from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
+    from hqp_tpu_torch.utils.registry import modules
+    skw = dict(max_iters=50, qp_eps=QP_EPS_DID1000)
+    nk1, nk2 = DID1000_COUNTS[1:]
+    with KernelSpy() as spy, QPDevices() as qd:
+        # (a) the library inverse by the caller's word; (b) the refinement
+        # and regularization keywords with K1's routes
+        for part, (name, kw) in zip("ab", KKT_KNOB_CASES.items()):
+            spy.case = name
+            with FactorCount() as fc:
+                _, launches = drive22(part, name, PrgDID(
+                    kmax=1000, device=DEVICE), skw, True,
+                    REF_KKT_KNOBS[name], smi, phase=23,
+                    kkt_backend=PartitionedKKT(**kw))
+            gj = launches["gj"]
+            print(f"[23{part}] {name}: {fc.n} factorizations, K1 "
+                  f"{gj}, K2 {launches['thomas']} (DID-1000 in phase 7: "
+                  f"K1 {nk1}, K2 {nk2} at {DID1000_COUNTS[0]} IP)")
+            if kw.get("gj") == "xla":
+                check(gj == {"tile": 0, "large": 0, "inv": 0},
+                      f"{name}: K1 launched: {gj}")
+                if REF_KKT_KNOBS[name][3] == DID1000_COUNTS[0]:
+                    check(launches["thomas"] == nk2,
+                          f"{name}: K2 {launches['thomas']} launches, "
+                          f"phase 7's {nk2}")
+            else:
+                check(gj == {"tile": fc.n, "large": 0, "inv": 0},
+                      f"{name}: K1 {gj} for {fc.n} factorizations")
+            check(launches["thomas"] > 0, f"{name}: K2 not launched")
+        check(qd.devices == {DEVICE}, f"a QP left the card: {qd.devices}")
+
+        # (c) SpSCdist's replicated layout at world size 1 on nccl
+        check(distributed.init_distributed(world_size=1, device=DEVICE),
+              "no process group")
+        try:
+            mesh = distributed.global_mesh(("sp",))
+            be = modules.create("qp_mat_solver", "SpSCdist", mesh,
+                                full_shard=False)
+            check(type(be) is sharded_kkt.ShardedPartitionedKKT
+                  and not be.full_shard, "SpSCdist full_shard=False")
+            spy.case = "SpSCdist full_shard=False"
+            with FactorCount() as fc:
+                _, launches = drive22("c", spy.case, PrgDID(
+                    kmax=1000, device=DEVICE), skw, True, REF_SHARD_REP,
+                    smi, phase=23, kkt_backend=be)
+        finally:
+            dist.destroy_process_group()
+        key = ("K1", SHARD_K1, 4, torch.float64)
+        check(key in spy.inputs and launches["gj"]["tile"] == fc.n,
+              f"K1 at {SHARD_K1}: {launches} for {fc.n} factorizations, "
+              f"{list(spy.inputs)}")
+        print(f"[23c] collectives per solve: {launches['collectives']} "
+              f"(full_shard=True in phase 22 (c): "
+              f"{COUNTS.get('22c', 'not run')}); {fc.n} factorizations, "
+              f"K1 {launches['gj']['tile']} on {list(SHARD_K1)}, K2 "
+              f"{launches['thomas']}")
+        check(qd.devices == {DEVICE}, f"a QP left the card: {qd.devices}")
+    spy.hold(23)
+
+    # (d) thomas_solve_scaled against its plain twin
+    rows = []
+    for N, n in SCALED_SHAPES:
+        D, U, r = thomas_inputs(1, N, n, torch.float64, seed=N + n)
+        rng = np.random.default_rng(n)
+        d = torch.as_tensor(rng.uniform(0.1, 10.0, (1, N, n)),
+                            device=DEVICE)
+        # no solve of either package calls it: its path is this one call,
+        # counted from 0 as a main path's launches are
+        reset_counts()
+        x = thomas_cuda.thomas_solve_scaled(D, U, d, r)
+        launches = thomas_cuda.LAUNCHES
+        check(launches == 1, f"thomas_solve_scaled launched K2 {launches} "
+              "times, not once")
+        xr = thomas_cuda.thomas_solve_scaled_plain(D, U, d, r)
+        e = rel_err(x, xr)
+        # the scaled solve is d * (K2 on the scaled rhs), and the original
+        # system's factors give the same answer (blocktri.solve_scaled)
+        L, W = blocktri.factor(D[0], U[0])
+        e_bt = rel_err(blocktri.solve_scaled(L, W, d[0], r[0]), x[0])
+        t = time_thomas_scaled(D, U, d, r)
+        show(23, "thomas_solve_scaled", t, f"f64, K2, N={N}, n={n}: rel "
+             f"err {e:.2e} against its twin, {e_bt:.2e} against "
+             f"blocktri.solve_scaled; on {smi}")
+        check(e <= SCALED_RTOL, f"thomas_solve_scaled at N={N}, n={n}: "
+              f"rel err {e} against its twin")
+        check(e_bt < 1e-10, f"thomas_solve_scaled at N={N}, n={n}: "
+              f"{e_bt} from blocktri.solve_scaled")
+        rows.append({"shape": [N, n, n], "launches": launches,
+                     "max_abs_err": float((x - xr).abs().max()),
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                     "library_ms": t["library_ms"],
+                     "device_ms": t["device_ms"],
+                     "single_ms": t["single_ms"]})
+    return rows
+
 
 def main():
     # -- 1. device and toolchain -----------------------------------------
@@ -2582,6 +2824,10 @@ def main():
     sharded = phase_22(smi)
     clock(22)
 
+    # -- 23. PartitionedKKT's keywords, full_shard=False, the scaled K2 ---------
+    scaled = phase_23(smi)
+    clock(23)
+
     def row(key, name, replaces):
         t = times[key]
         return {"name": name, "route": "cuda",
@@ -2601,7 +2847,7 @@ def main():
                         "hqp_tpu/ops/gj_pallas.py:138"), cluster=cluster),
                dict(row("thomas", "thomas",
                         "hqp_tpu/ops/thomas_pallas.py:128"),
-                    scenarios=batch["thomas"],
+                    scenarios=batch["thomas"], scaled=scaled,
                     **({"sharded": sharded["thomas"]} if "thomas" in sharded
                        else {}))]
     print(json.dumps({"kernels": kernels}))

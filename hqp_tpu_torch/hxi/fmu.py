@@ -453,8 +453,9 @@ _TEST_FMU_XML = """<?xml version="1.0" encoding="UTF-8"?>
 """
 
 
-def build_test_fmu() -> str:
-    """Build the double-integrator test FMU (compile + zip) into
+def build_test_fmu(out_path: str | None = None) -> str:
+    """Build the double-integrator test FMU (compile + zip) at
+    ``out_path`` if given, else into
     ``build/hqp_tpu_torch_hxi/<hash>/hqp_tpu_dic.fmu``; returns its path.
 
     Gives the FMU path hermetic test coverage, mirroring the role of the
@@ -472,4 +473,4 @@ def build_test_fmu() -> str:
                 z.write(so, f"binaries/{_binary_subdir()}/dic.so")
 
     key = (_TEST_FMU_C + _TEST_FMU_XML + _binary_subdir()).encode()
-    return cc_shared("hqp_tpu_dic.fmu", write, key)
+    return cc_shared("hqp_tpu_dic.fmu", write, key, out_path)

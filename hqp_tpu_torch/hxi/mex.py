@@ -63,12 +63,14 @@ _MEX_SIGS = {
 }
 
 
-def build_mex_sfunction(src: str, include_dir: str | None = None) -> str:
+def build_mex_sfunction(src: str, out: str | None = None,
+                        include_dir: str | None = None) -> str:
     """Compile a level-2 C S-function source as a MEX file (the
-    -DMATLAB_MEX_FILE branch of its trailing include)."""
+    -DMATLAB_MEX_FILE branch of its trailing include), at ``out`` if
+    given, else under ``build/``."""
     name = os.path.splitext(os.path.basename(src))[0] + ".mexa64"
     return build_emulated(src, name, defines=("-DMATLAB_MEX_FILE",),
-                          include_dir=include_dir)
+                          include_dir=include_dir, out=out)
 
 
 def demo_mex_path() -> str:

@@ -44,16 +44,21 @@ INFO: dict = {}
 _dp = ctypes.POINTER(ctypes.c_double)
 
 
-def cc_shared(name, write, key: bytes):
+def cc_shared(name, write, key: bytes, out: str | None = None):
     """``build/hqp_tpu_torch_hxi/<hash of key and CC_FLAGS>/<name>``, made
     by ``write(tmp_path, out_dir)`` if this hash has none yet (``write``
-    fills the temporary file, which is then renamed into place)."""
-    h = hashlib.sha256(" ".join(CC_FLAGS).encode() + key)
-    out_dir = os.path.join(BUILD_ROOT, h.hexdigest()[:16])
-    out = os.path.join(out_dir, name)
-    if os.path.isfile(out):
-        INFO[name] = dict(path=out, seconds=0.0, built=False)
-        return out
+    fills the temporary file, which is then renamed into place).  With
+    ``out`` the file is built there instead, every time."""
+    if out is None:
+        h = hashlib.sha256(" ".join(CC_FLAGS).encode() + key)
+        out_dir = os.path.join(BUILD_ROOT, h.hexdigest()[:16])
+        out = os.path.join(out_dir, name)
+        if os.path.isfile(out):
+            INFO[name] = dict(path=out, seconds=0.0, built=False)
+            return out
+    else:
+        out = os.path.abspath(out)
+        out_dir = os.path.dirname(out)
     os.makedirs(out_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=os.path.splitext(name)[1],
                                dir=out_dir)
@@ -78,9 +83,10 @@ def run_cc(cmd):
                            f"\n{proc.stdout}{proc.stderr}")
 
 
-def compile_sfunction(src: str) -> str:
+def compile_sfunction(src: str, out: str | None = None) -> str:
     """Compile an S-function .c source against the port's hxi headers to a
-    shared library under ``build/``; returns the .so path."""
+    shared library, at ``out`` if given, else under ``build/``; returns
+    the .so path."""
     key = b""
     for p in (src, *_HEADERS):
         with open(p, "rb") as fh:
@@ -90,7 +96,7 @@ def compile_sfunction(src: str) -> str:
         run_cc(["cc", *CC_FLAGS, "-I", HXI_DIR, src, "-o", tmp])
 
     name = os.path.splitext(os.path.basename(src))[0] + ".so"
-    return cc_shared(name, write, key)
+    return cc_shared(name, write, key, out)
 
 
 def demo_sfunction_path(name: str) -> str:

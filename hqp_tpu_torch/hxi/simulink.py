@@ -6,8 +6,9 @@ level-2 C S-function sources against its in-tree SimStruct emulation
 no MathWorks install.  Same here, against the port's own copies of the
 emulation headers (``csrc/hxi_simulink/{simstruc.h, cg_sfun.h}``):
 
-* ``build_sfunction(src)`` compiles a level-2 source with ``cc -O2 -shared
-  -fPIC`` into ``build/hqp_tpu_torch_hxi/<hash>/`` (the layout, hashing and
+* ``build_sfunction(src, out=None)`` compiles a level-2 source with ``cc
+  -O2 -shared -fPIC`` at ``out``, by default into
+  ``build/hqp_tpu_torch_hxi/<hash>/`` (the layout, hashing and
   temporary-name-then-rename of :func:`hqp_tpu_torch.hxi.sfunction.cc_shared`;
   a failed build raises, nothing is written next to the source);
 * :class:`SimulinkSFunction` drives it through the standard lifecycle
@@ -93,10 +94,11 @@ def bind(lib, sigs):
     return lib
 
 
-def build_emulated(src, name, defines=(), include_dir=None):
+def build_emulated(src, name, defines=(), include_dir=None, out=None):
     """Compile ``src`` against the emulation headers (``include_dir``,
-    default SIMULINK_DIR) into ``build/hqp_tpu_torch_hxi/<hash>/<name>``;
-    the hash covers the source, the headers and the flags."""
+    default SIMULINK_DIR) into ``out`` if given, else into
+    ``build/hqp_tpu_torch_hxi/<hash>/<name>``; the hash covers the source,
+    the headers and the flags."""
     inc = include_dir or SIMULINK_DIR
     flags = [*defines, "-lm"]
     key = " ".join(flags).encode()
@@ -109,15 +111,17 @@ def build_emulated(src, name, defines=(), include_dir=None):
         run_cc(["cc", *CC_FLAGS, *defines, "-I", inc, src, "-o", tmp,
                 "-lm"])
 
-    return cc_shared(name, write, key)
+    return cc_shared(name, write, key, out)
 
 
-def build_sfunction(src: str, include_dir: str | None = None) -> str:
+def build_sfunction(src: str, out: str | None = None,
+                    include_dir: str | None = None) -> str:
     """Compile a level-2 C S-function source against the SimStruct
-    emulation headers (the cg_sfun.h export shims).  Returns the path of
-    the built shared object."""
+    emulation headers (the cg_sfun.h export shims), at ``out`` if given,
+    else under ``build/``.  Returns the path of the built shared
+    object."""
     name = os.path.splitext(os.path.basename(src))[0] + ".so"
-    return build_emulated(src, name, include_dir=include_dir)
+    return build_emulated(src, name, include_dir=include_dir, out=out)
 
 
 class EmulatedSFunction:

@@ -33,6 +33,12 @@ def equilibrate(S, U):
     return Ss, Us, d
 
 
+def solve_scaled(L, W, d, rhs):
+    """Solve the original system given factors of the equilibrated one
+    (``equilibrate``'s d)."""
+    return d * solve(L, W, d * rhs)
+
+
 def factor(S, U):
     """S: [..., N, n, n] SPD diagonal blocks; U: [..., N-1, n, n] upper
     couplings (leading axes: a batch of systems).  Returns (L, W):

@@ -100,6 +100,11 @@ def cho_solve(L, b):
     return tri_upper_solve(L, tri_lower_solve(L, b))
 
 
+def spd_solve(A, b):
+    """Solve SPD A x = b by Cholesky."""
+    return cho_solve(chol(A), b)
+
+
 def lu_nopiv(A):
     """Unrolled LU WITHOUT pivoting (Doolittle) for small well-conditioned
     systems (integrator Newton matrices); one packed matrix (L below the

@@ -11,6 +11,8 @@ pivoting -- safe after ``blocktri.equilibrate``, which the caller applies.
 (f32 only), both keep the input dtype: float64 or float32.  Leading
 batch axes are optional: D [..., N, n, n] (a scenario batch's masters:
 [B, N, n, n]); the kernel takes them flattened, one warp a system.
+:func:`thomas_solve_scaled` is the reference's equilibrated wrapper
+(``thomas_pallas.thomas_solve_scaled``) around the same kernel.
 """
 
 from __future__ import annotations
@@ -127,3 +129,16 @@ def thomas_solve(D, U, rhs):
     _build.check(err, "thomas kernel launch")
     LAUNCHES += 1
     return x
+
+
+def thomas_solve_scaled_plain(D, U, d, rhs):
+    """Plain twin of :func:`thomas_solve_scaled`."""
+    return d * thomas_solve_plain(D, U, d * rhs)
+
+
+def thomas_solve_scaled(D, U, d, rhs):
+    """The equilibrated solve d * thomas_solve(D, U, d * rhs): (D, U) the
+    equilibrated blocks and d [..., N, n] the Jacobi scaling
+    (``blocktri.equilibrate``), the contract of ``blocktri.solve_scaled``.
+    One K2 launch on CUDA tensors, the plain twin on CPU tensors."""
+    return d * thomas_solve(D, U, (d * rhs).contiguous())

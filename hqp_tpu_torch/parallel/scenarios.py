@@ -8,9 +8,11 @@ the program builds the batched StageQP by ``torch.func.vmap``
 takes the batch natively: one host loop over the whole batch, each
 scenario frozen at its own result, with every partition interior of the
 batch in one K1 launch per factorization and every master in one K2
-launch per master solve (:mod:`hqp_tpu_torch.qp.kkt_partitioned`).  The
-reference's ``batched_safe`` has no counterpart: the port's kernels take
-the batch as it is.  The mesh half (``make_mesh``, ``shard_batch``) runs
+launch per master solve (:mod:`hqp_tpu_torch.qp.kkt_partitioned`).
+:func:`batched_safe` rebinds a solver to the reference's batch choices
+(CR master, library inverse) for a caller who wants them; the port's own
+batch does not call it, since its kernels take the batch as it is.  The
+mesh half (``make_mesh``, ``shard_batch``) runs
 over ``torch.distributed`` (:mod:`hqp_tpu_torch.parallel.distributed`):
 each rank keeps its slice of the batch's leading axis as a plain tensor on
 its own device and solves it; ``gather_batch`` puts the rows back together
@@ -18,6 +20,8 @@ on every rank.
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 import torch.distributed as dist
@@ -93,6 +97,28 @@ def batched_qp(prg, base_v, n_scenarios, scale=1e-3, generator=None, seed=0):
     return base_v[None] + noise.to(base_v.device)
 
 
+def batched_safe(solver):
+    """The solver with its KKT backend rebound to the reference's
+    batched choices (``master="cr"``, ``gj="xla"``), each only where the
+    caller left it unset (None); the solver itself if its backend has
+    neither knob or both are set.
+
+    The reference needs this at every vmap seam, because a vmapped Pallas
+    kernel serializes the batch in its grid.  The port does not:
+    :func:`make_scenario_solve` leaves the backend as it is, so a batch
+    takes all its B*P interiors in one K1 launch (768 interiors of the
+    256-scenario batch, PERF.md section 5) and its B masters in one K2
+    launch; call this only to reproduce the reference's choices."""
+    be = getattr(solver, "backend", None)
+    if be is None or not hasattr(be, "master") or not hasattr(be, "gj") \
+            or (be.master is not None and be.gj is not None):
+        return solver
+    nb = copy.copy(be)
+    nb.master = nb.master or "cr"
+    nb.gj = nb.gj or "xla"
+    return solver.with_backend(nb)
+
+
 def make_scenario_init(prg, solver):
     """(v [B, K1, nv], Q [B, K1, nv, nv]) -> the cold-started states of
     every scenario's QP."""
@@ -124,7 +150,9 @@ def make_scenario_solve(prg, solver, presolve_tau=None):
     first (:func:`~hqp_tpu_torch.qp.presolve.merge_parallel_rows`); the
     states then solve the PRESOLVED QPs, and ``violations`` [B] holds the
     largest violation of each scenario's original rows at its solution
-    (None without a presolve)."""
+    (None without a presolve).  The solver's backend is used as it is
+    (no :func:`batched_safe`): every interior of the batch goes through
+    one K1 launch and every master through one K2 launch."""
 
     def solve(v, Q):
         _, qp = prg.make_qp_batch(v, Q)

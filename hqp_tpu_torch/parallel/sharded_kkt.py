@@ -32,9 +32,18 @@ Each rank's view holds its stage rows plus ONE halo row (the right
 neighbour's first stage; the terminal stage on the last rank), so every
 per-stage operation runs verbatim on a local :class:`StageQP`; the -I
 coupling of the left neighbour's last dynamics row is the one term that
-crosses a rank boundary (``_RankView.matvec_eqT``).  Only the default
-``full_shard=True`` layout of the reference is ported.  A collective that
-fails raises; nothing falls back to a single-device solve.
+crosses a rank boundary (``_RankView.matvec_eqT``).
+
+``full_shard=False`` is the reference's other layout: the factorization is
+the same, but the solve is :class:`PartitionedKKT`'s, run replicated on
+every rank (the stage work, the base solve, the regularization corrections
+and the refinement on the whole QP), and only its reduced solves are split
+over the ranks: each rank condenses its own interiors, the boundary
+corrections are gathered by one ``all_reduce``, the master is solved on
+every rank, and the back-substituted rows of every rank come back in one
+more ``all_reduce`` (two collectives per reduced solve, none in the
+refinement's norms).  A collective that fails raises; nothing falls back
+to a single-device solve.
 """
 
 from __future__ import annotations
@@ -75,23 +84,27 @@ class ShardedPartitionedKKT(PartitionedKKT):
     (``torch.distributed.device_mesh.DeviceMesh``, e.g. from
     :func:`hqp_tpu_torch.parallel.distributed.global_mesh`) axis ``axis``.
 
-    ``refine_rounds`` and ``reg_corr_rounds`` override the refinement
-    rounds of the factor dtype and the analytic corrections of the dual
-    regularization (``PartitionedKKT.REG_CORR_ROUNDS``), as the reference's
-    sharded class takes them."""
+    Every keyword of :class:`PartitionedKKT` passes through with its
+    meaning there (``refine_rounds``, ``reg_corr_rounds``, ``refine_eps``,
+    ``dual_reg``, ``gj``, ``refine_relative``, ``factor_dtype``,
+    ``master``).  ``full_shard``: True (default) runs the whole solve on
+    each rank's rows; False the reference's replicated solve around
+    sharded reduced solves (module docstring)."""
 
     def __init__(self, mesh, axis: str = "sp", L: int = 16,
                  refine_rounds: int | None = None,
-                 reg_corr_rounds: int | None = None, **kw):
-        super().__init__(L=L, **kw)
-        self.refine_rounds = refine_rounds
-        self.reg_corr_rounds = self.REG_CORR_ROUNDS \
-            if reg_corr_rounds is None else reg_corr_rounds
+                 full_shard: bool = True, **kw):
+        super().__init__(L=L, refine_rounds=refine_rounds, **kw)
+        self.full_shard = full_shard
         self.mesh = mesh
         self.axis = axis
         self.ndev = mesh.shape[mesh.mesh_dim_names.index(axis)]
         self.index = mesh.get_local_rank(axis)
         self.group = mesh.get_group(axis)
+
+    def _config(self):
+        return super()._config() + (self.mesh, self.axis,
+                                    self.full_shard)
 
     # -- layout: P must divide evenly over the ranks ---------------------------
 
@@ -192,19 +205,47 @@ class ShardedPartitionedKKT(PartitionedKKT):
 
     # -- sharded solve ---------------------------------------------------------
 
+    def _condense(self, dims, fac, gsp, r2dyn):
+        """This rank's interiors condensed onto the boundaries: the
+        interior solutions t [Pl, s] and the boundary corrections
+        [Pl, 2nx], from its partitions' rows of g [Pl, L, nv] and of the
+        dynamics residual."""
+        L, s, nx, nu, nv, _ = dims
+        Pl = gsp.shape[0]
+        rhoI = torch.cat([gsp[:, 0, nx:], gsp[:, 1:].reshape(Pl, -1),
+                          r2dyn.reshape(Pl, L * nx)], dim=1)
+        t = _interior_apply((fac.Minv, fac.Dscale, fac.MII), rhoI,
+                            self._inner())
+        return t, torch.einsum("psb,ps->pb", fac.MIB, t)
+
+    def _boundary_solve(self, fac, rhoB, corr, nx):
+        """The replicated master solve on the gathered boundary data."""
+        rhoB[:-1] -= corr[:, :nx]
+        rhoB[1:] -= corr[:, nx:]
+        return _master_solve(fac.master, fac.dM, -rhoB, self._inner())
+
+    def _backsub(self, dims, fac, t, xB):
+        """This rank's interiors back-substituted from the boundary
+        states: its stage rows of dx [Pl L, nv] and dy_dyn [Pl L, nx]."""
+        L, s, nx, nu, nv, (_, _, off_y) = dims
+        Pl = t.shape[0]
+        xs = xB[self.index * Pl:self.index * Pl + Pl + 1]
+        xpair = torch.cat([xs[:-1], xs[1:]], dim=1)
+        zeta = t - torch.einsum("psb,pb->ps", fac.W, xpair)
+        vint = zeta[:, nu:off_y].reshape(Pl, L - 1, nv)
+        vfull = torch.cat([torch.cat([xs[:-1], zeta[:, :nu]], dim=-1)[:, None],
+                           vint], dim=1).reshape(Pl * L, nv)
+        return vfull, zeta[:, off_y:].reshape(Pl * L, nx)
+
     def _reduced_solve_local(self, dims, fac, g2, r2dyn, last):
         """Reduced saddle solve on the local view: local interiors and the
         replicated master.  Returns (dx [Kl + 1] with a valid halo row,
         dy_dyn [Kl])."""
-        L, s, nx, nu, nv, (_, _, off_y) = dims
+        L, s, nx, nu, nv, _ = dims
         Pl = fac.Minv.shape[0]
         P, i0 = Pl * self.ndev, self.index * Pl
-        gsp = g2[:-1].reshape(Pl, L, nv)
-        rhoI = torch.cat([gsp[:, 0, nx:], gsp[:, 1:].reshape(Pl, -1),
-                          r2dyn.reshape(Pl, L * nx)], dim=1)
-        inner = self._inner()
-        t = _interior_apply((fac.Minv, fac.Dscale, fac.MII), rhoI, inner)
-        corr_l = torch.einsum("psb,ps->pb", fac.MIB, t)
+        t, corr_l = self._condense(dims, fac, g2[:-1].reshape(Pl, L, nv),
+                                   r2dyn)
         # ONE fused all_reduce carries all boundary data: the Schur
         # corrections, the partition-start rows of g and the terminal row
         # (the last rank's halo)
@@ -215,26 +256,41 @@ class ShardedPartitionedKKT(PartitionedKKT):
         if last:
             pay[P * 3 * nx:] = g2[-1]
         self._all_reduce(pay)
-        corr = pay[:P * 2 * nx].reshape(P, 2 * nx)
         gT = pay[P * 3 * nx:]
         rhoB = torch.cat([pay[P * 2 * nx:P * 3 * nx].reshape(P, nx),
                           (gT[:nx] - sl.mv(fac.KgainK.mT, gT[nx:]))[None]])
-        rhoB[:-1] -= corr[:, :nx]
-        rhoB[1:] -= corr[:, nx:]
-        xB = _master_solve(fac.master, fac.dM, -rhoB, inner)
-
-        xs = xB[i0:i0 + Pl + 1]
-        xpair = torch.cat([xs[:-1], xs[1:]], dim=1)
-        zeta = t - torch.einsum("psb,pb->ps", fac.W, xpair)
-        vint = zeta[:, nu:off_y].reshape(Pl, L - 1, nv)
-        vfull = torch.cat([torch.cat([xs[:-1], zeta[:, :nu]], dim=-1)[:, None],
-                           vint], dim=1).reshape(Pl * L, nv)
+        xB = self._boundary_solve(fac, rhoB,
+                                  pay[:P * 2 * nx].reshape(P, 2 * nx), nx)
+        vfull, dyd = self._backsub(dims, fac, t, xB)
         duK = -(sl.cho_solve(fac.LuuK, gT[nx:]) + sl.mv(fac.KgainK, xB[-1]))
         halo = self.from_right(vfull[0])
         if last:
             halo = torch.cat([xB[-1], duK])
-        return (torch.cat([vfull, halo[None]]),
-                zeta[:, off_y:].reshape(Pl * L, nx))
+        return torch.cat([vfull, halo[None]]), dyd
+
+    def solve_reduced(self, fac: PartFactors, qp: StageQP, g, r2dyn):
+        """``full_shard=False``'s reduced solve (the reference's
+        ``_local_solve``): this rank condenses its own interiors, one
+        all_reduce gathers the boundary corrections, the master is solved
+        on every rank, and one all_reduce gathers the back-substituted
+        rows of every rank."""
+        nx, nv = qp.nx, qp.nv
+        L, P, dims, k0, k1 = self._rows(qp)
+        Pl = P // self.ndev
+        t, corr_l = self._condense(dims, fac, g[k0:k1].reshape(Pl, L, nv),
+                                   r2dyn[k0:k1])
+        rhoB = g[::L, :nx].clone()
+        rhoB[-1] -= sl.mv(fac.KgainK.mT, g[-1, nx:])
+        xB = self._boundary_solve(fac, rhoB, self._gather_replicated(corr_l),
+                                  nx)
+        vfull, dyd = self._backsub(dims, fac, t, xB)
+        rows = g.new_zeros((P * L, nv + nx))
+        rows[k0:k1] = torch.cat([vfull, dyd], dim=1)
+        rows = self._all_reduce(rows)
+        duK = -(sl.cho_solve(fac.LuuK, g[-1, nx:]) + sl.mv(fac.KgainK,
+                                                           xB[-1]))
+        dx = torch.cat([rows[:, :nv], torch.cat([xB[-1], duK])[None]])
+        return dx, rows[:, nv:]
 
     def _base_solve_local(self, dims, qp_loc, fac, z, w, mask,
                           r1, r2, r3, r4, last):
@@ -259,9 +315,9 @@ class ShardedPartitionedKKT(PartitionedKKT):
         return errs, self._own_max(own, *((e, None) for e in errs))
 
     def _refine(self, base, qp_loc, z, w, mask, rhs, sol, own):
-        """K_.refine's loop (entry test, monotone guard, rhs-scaled
-        tolerance) on the local view, each norm over all ranks by one
-        all_reduce(MAX)."""
+        """K_.refine's loop (entry test, monotone guard, the tolerance
+        rhs-scaled unless ``refine_relative`` is False) on the local view,
+        each norm over all ranks by one all_reduce(MAX)."""
         rounds = self._refine_rounds()
         if rounds <= 0:
             return sol
@@ -273,7 +329,9 @@ class ShardedPartitionedKKT(PartitionedKKT):
         errs, res = self._residual(qp_loc, z, w, mask, rhs, sol, own)
         res, sc = self._all_reduce(torch.stack([res, sc]),
                                    dist.ReduceOp.MAX)
-        eps = self._refine_eps() * torch.clamp(sc, min=1.0)
+        eps = self._refine_eps()
+        if self.refine_relative:
+            eps = eps * torch.clamp(sc, min=1.0)
         go = host(res > eps)
         i = 0
         while go and i < rounds:
@@ -292,7 +350,10 @@ class ShardedPartitionedKKT(PartitionedKKT):
 
     def solve(self, fac, qp: StageQP, z, w, mask, r1, r2, r3, r4):
         """The whole solve on this rank's rows, the direction gathered on
-        every rank."""
+        every rank; with ``full_shard=False`` PartitionedKKT's solve on
+        every rank around the sharded :meth:`solve_reduced`."""
+        if not self.full_shard:
+            return super().solve(fac, qp, z, w, mask, r1, r2, r3, r4)
         L, P, dims, k0, k1 = self._rows(qp)
         last = self.index == self.ndev - 1
 

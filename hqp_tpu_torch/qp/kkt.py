@@ -116,20 +116,27 @@ def rhs_scale(qp, mask, r1, r2, r3, r4):
 
 
 def refine(solve_fn, qp, z, w, mask, r1, r2, r3, r4, sol,
-           eps=1e-10, max_rounds=5):
+           eps=1e-10, max_rounds=5, unroll=False, relative=True):
     """Iterative refinement of a KKT solve (Hqp_IpMatrix::solve,
     hqp/Hqp_IpMatrix.C:65-128): re-solve on the residual and accept the
     correction while the residual norm decreases.
 
-    ``eps`` is scaled by max(1, ||rhs||_inf) (the code of the reference
-    package, whose docstring describes a solution-scaled variant it
-    measured and reverted).  The loop runs on the host: each test reads
-    one small tensor (:func:`~hqp_tpu_torch.utils.sync.host`), one at
-    entry and one per round, and the common already-accurate case exits
-    at the entry test.  A batched QP takes :func:`_refine_batch`."""
+    ``relative=True`` scales ``eps`` by max(1, ||rhs||_inf) (the code of
+    the reference package, whose docstring describes a solution-scaled
+    variant it measured and reverted); ``relative=False`` takes ``eps`` as
+    an absolute bound on the residual.  ``unroll`` is accepted and
+    ignored: in the reference it picks straight-line code over a
+    ``lax.while_loop`` with the same result, and here the loop runs on the
+    host either way.  Each test reads one small tensor
+    (:func:`~hqp_tpu_torch.utils.sync.host`), one at entry and one per
+    round, and the common already-accurate case exits at the entry test.
+    A batched QP takes :func:`_refine_batch`."""
+    del unroll
     if max_rounds <= 0:          # no round may run: the entry test is moot
         return sol
-    eps = eps * torch.clamp(rhs_scale(qp, mask, r1, r2, r3, r4), min=1.0)
+    if relative:
+        eps = eps * torch.clamp(rhs_scale(qp, mask, r1, r2, r3, r4),
+                                min=1.0)
     e1, e2, e3, e4, res = kkt_residual(qp, z, w, mask, r1, r2, r3, r4, *sol)
     if qp.nb:
         return _refine_batch(solve_fn, qp, z, w, mask, (r1, r2, r3, r4),

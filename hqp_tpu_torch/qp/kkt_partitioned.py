@@ -115,27 +115,58 @@ class PartitionedKKT:
     """Stage-partitioned Schur-complement factorization of a StageQP KKT.
 
     ``factor_dtype``: "f64" (default) or "f32", the dtype of the interior
-    inverse and of the Thomas master.  The refinement constants resolve by
-    it exactly as the reference's defaults do: refine_eps 1e-10 / 3e-7,
-    refine_rounds 4 / 2, dual_reg 1e-8 / 3e-7, inner rounds 1 / 4 (the
-    inner rounds also refine the master, per instance).  ``master``: None
-    or "thomas" for the K2 kernel (blocks up to ``thomas_cuda.MAX_BLOCK``),
-    "cr" for f64 cyclic reduction."""
+    inverse and of the Thomas master.  ``master``: None or "thomas" for
+    the K2 kernel (blocks up to ``thomas_cuda.MAX_BLOCK``), "cr" for f64
+    cyclic reduction.  The other keywords are the reference's, with its
+    meaning; None resolves by the factor dtype as the reference's defaults
+    do (f64 / f32):
 
-    #: analytic corrections of the dual regularization per solve
-    REG_CORR_ROUNDS = 2
+    - ``refine_eps`` (1e-10 / 3e-7) and ``refine_rounds`` (4 / 2): the
+      true-residual refinement gate of every solve (:func:`kkt.refine`);
+      ``refine_relative`` scales ``refine_eps`` by the rhs norm (True) or
+      takes it as an absolute bound (False);
+    - ``dual_reg`` (1e-8 / 3e-7): the +delta I on the interior dynamics
+      rows, and ``reg_corr_rounds`` (2): its analytic corrections per
+      solve;
+    - ``gj``: None or any value but "xla" inverts the interiors by kernel
+      K1 (its routes by size, :func:`gj_cuda.route`); "xla" is the
+      caller's request for the library inverse ``torch.linalg.inv``, with
+      which K1 is not launched.  The inner rounds (1 / 4) also refine the
+      master, per instance."""
 
-    def __init__(self, L: int = 16, master: str | None = None,
+    def __init__(self, L: int = 16, refine_eps: float | None = None,
+                 refine_rounds: int | None = None,
+                 dual_reg: float | None = None,
+                 reg_corr_rounds: int | None = None,
+                 master: str | None = None, gj: str | None = None,
+                 refine_relative: bool = True,
                  factor_dtype: str | None = None):
         if factor_dtype not in (None, "f64", "f32"):
             raise ValueError(f"factor_dtype {factor_dtype!r}: need f64/f32")
         if master not in (None, "thomas", "cr"):
             raise ValueError(f"master {master!r}: need thomas/cr")
         self.L = L
+        self.refine_eps = refine_eps
+        self.refine_rounds = refine_rounds
+        self.dual_reg = dual_reg
+        self.reg_corr_rounds = 2 if reg_corr_rounds is None \
+            else reg_corr_rounds
         self.master = master
+        self.gj = gj
+        self.refine_relative = refine_relative
         self.factor_dtype = factor_dtype
-        #: refinement rounds overriding the factor dtype's (with_refine)
-        self.refine_rounds = None
+
+    def _config(self):
+        return (type(self), self.L, self.refine_eps, self.refine_rounds,
+                self.dual_reg, self.reg_corr_rounds, self.master, self.gj,
+                self.refine_relative, self.factor_dtype)
+
+    def __hash__(self):
+        return hash(self._config())
+
+    def __eq__(self, other):
+        return isinstance(other, PartitionedKKT) and \
+            self._config() == other._config()
 
     # -- per-instance resolution by factor dtype ------------------------------
 
@@ -149,6 +180,8 @@ class PartitionedKKT:
         return self.master or "thomas"
 
     def _refine_eps(self):
+        if self.refine_eps is not None:
+            return self.refine_eps
         return 3e-7 if self._lu() == torch.float32 else 1e-10
 
     def _refine_rounds(self):
@@ -169,6 +202,8 @@ class PartitionedKKT:
         return new
 
     def _dual_reg(self):
+        if self.dual_reg is not None:
+            return self.dual_reg
         return 3e-7 if self._lu() == torch.float32 else 1e-8
 
     def _choose_L(self, K, nx, nu):
@@ -399,11 +434,16 @@ class PartitionedKKT:
             MII_s = MII_s * di[:, :, None] * di[:, None, :]
         MIB_s = MIB * Dd[:, :, None]
         lu = self._lu()
-        # the kernel also returns the fused W and Schur of the scaled
-        # system; like the reference, the path keeps only Minv and forms W
-        # with f64 inner refinement (and Schur in f64 from it) below
-        Minv, _, _ = gj_cuda.interior_factor(MII_s.to(lu).contiguous(),
-                                             MIB_s.to(lu).contiguous())
+        if self.gj == "xla":
+            # the caller's choice of the library inverse (the reference's
+            # jnp.linalg.inv at the factor dtype): K1 is not launched
+            Minv = torch.linalg.inv(MII_s.to(lu))
+        else:
+            # the kernel also returns the fused W and Schur of the scaled
+            # system; like the reference, the path keeps only Minv and
+            # forms W with f64 inner refinement (and Schur in f64 from it)
+            Minv, _, _ = gj_cuda.interior_factor(MII_s.to(lu).contiguous(),
+                                                 MIB_s.to(lu).contiguous())
         fac0 = (Minv, Dd, MII_s)
         W = _interior_apply(fac0, MIB, self._inner())
         return Minv, Dd, MII_s, W
@@ -508,7 +548,7 @@ class PartitionedKKT:
         return dx, dy
 
     def solve(self, fac, qp: StageQP, z, w, mask, r1, r2, r3, r4):
-        """Base solve with ``REG_CORR_ROUNDS`` analytic corrections of the
+        """Base solve with ``reg_corr_rounds`` analytic corrections of the
         dual regularization (a Neumann series: re-solve in the reduced
         space on the known residual delta * y of the last correction),
         one multiplier recovery on the accumulated (dx, dy_dyn), then the
@@ -519,7 +559,7 @@ class PartitionedKKT:
             g, g2 = K_.stage_reduce_rhs(qp, z, w, mask, a1, a2, a3, a4)
             dx, dyd = self.solve_reduced(fac, qp, g2, a2["dyn"])
             ylast = dyd
-            for _ in range(self.REG_CORR_ROUNDS):
+            for _ in range(self.reg_corr_rounds):
                 cx, cyd = self.solve_reduced(fac, qp, torch.zeros_like(g2),
                                              delta * ylast)
                 dx, dyd, ylast = dx + cx, dyd + cyd, cyd
@@ -528,7 +568,8 @@ class PartitionedKKT:
         sol = full(r1, r2, r3, r4)
         return K_.refine(full, qp, z, w, mask, r1, r2, r3, r4, sol,
                          eps=self._refine_eps(),
-                         max_rounds=self._refine_rounds())
+                         max_rounds=self._refine_rounds(),
+                         relative=self.refine_relative)
 
 
 modules.register("qp_mat_solver", "SpSC")(PartitionedKKT)

@@ -13,6 +13,7 @@ by both packages.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -184,6 +185,27 @@ def test_thomas_plain_matches_pallas_f32(N, n):
                                atol=1e-4 * np.abs(ref).max(), rtol=0)
 
 
+@pytest.mark.parametrize("N,n", [(7, 2), (101, 2), (5, 8)])
+def test_thomas_scaled_plain_matches_pallas_f32(N, n):
+    """thomas_solve_scaled (d * K2(D, U, d * rhs)) on its plain twin
+    against the reference's thomas_solve_scaled, whose Thomas solve runs
+    in interpret mode (the shapes and systems of
+    test_thomas_plain_matches_pallas_f32, so the traces are shared)."""
+    from hqp_tpu.ops.thomas_pallas import thomas_solve_scaled as jscaled
+    D, U, r = _spd_tridiag(N, n, seed=N)
+    d = np.random.default_rng(N + n).uniform(0.5, 2.0, (N, n))
+    a32 = [a.astype(np.float32) for a in (D, U, d, r)]
+    ref = np.asarray(jscaled(*(jnp.asarray(a) for a in a32)))
+    x = thomas_cuda.thomas_solve_scaled(*(_t(a, torch.float32)
+                                          for a in a32))
+    assert x.dtype == torch.float32
+    np.testing.assert_allclose(x.numpy(), ref,
+                               atol=1e-4 * np.abs(ref).max(), rtol=0)
+    torch.testing.assert_close(
+        x, thomas_cuda.thomas_solve_scaled_plain(
+            *(_t(a, torch.float32) for a in a32)), rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("N,n", THOMAS_SHAPES)
 def test_thomas_plain_f64_matches_numpy(N, n):
     D, U, r = _spd_tridiag(N, n, seed=N + 1)
@@ -223,11 +245,25 @@ def test_smalllin_matches_reference(n, floor):
                                        rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("n", [1, 4])
+def test_spd_solve_matches_reference(n):
+    """smalllin.spd_solve (Cholesky, then the two triangular solves) on a
+    batch of SPD blocks, for a vector and a matrix right-hand side."""
+    rng = np.random.default_rng(10 + n)
+    X = rng.standard_normal((5, n, n))
+    A = X @ np.swapaxes(X, 1, 2) + n * np.eye(n)
+    for rhs in (rng.standard_normal((5, n)), rng.standard_normal((5, n, 3))):
+        ref = np.asarray(jsl.spd_solve(jnp.asarray(A), jnp.asarray(rhs)))
+        np.testing.assert_allclose(smalllin.spd_solve(_t(A), _t(rhs)).numpy(),
+                                   ref, rtol=0, atol=1e-12)
+
+
 @pytest.mark.parametrize("N,n", [(101, 2), (8, 3), (2, 2)])
 def test_blocktri_matches_reference(N, n):
     """Equilibration, cyclic reduction and the block-Cholesky scan agree
-    with the reference; the f64 Thomas twin agrees with CR (it is the
-    master solve's other route)."""
+    with the reference, and so do the equilibrated solves solve_scaled and
+    cr_solve_scaled; the f64 Thomas twin, through thomas_solve_scaled,
+    agrees with CR (it is the master solve's other route)."""
     D, U, r = _spd_tridiag(N, n, seed=N + n)
 
     @jax.jit
@@ -247,9 +283,9 @@ def test_blocktri_matches_reference(N, n):
     np.testing.assert_allclose(x_cr.numpy(), ref, rtol=0, atol=1e-12)
     Lt, Wt = blocktri.factor(St, Ut)
     np.testing.assert_allclose(Lt.numpy(), Lj, rtol=0, atol=1e-12)
-    x_bc = dt * blocktri.solve(Lt, Wt, dt * _t(r))
+    x_bc = blocktri.solve_scaled(Lt, Wt, dt, _t(r))
     np.testing.assert_allclose(x_bc.numpy(), ref_bc, rtol=0, atol=1e-12)
-    x_th = dt * thomas_cuda.thomas_solve(St, Ut, dt * _t(r))
+    x_th = thomas_cuda.thomas_solve_scaled(St, Ut, dt, _t(r))
     np.testing.assert_allclose(x_th.numpy(), ref, rtol=0, atol=1e-12)
 
 
@@ -383,6 +419,11 @@ NEW_INTEGRATORS = {
 }
 
 
+#: the cases of test_new_integrator_matches_reference, in its order
+INTEG_CASES = [(n, p) for n, (_, probs) in NEW_INTEGRATORS.items()
+               for p in probs]
+
+
 def _relmax(out, ref):
     ref = np.asarray(ref)
     return float(np.max(np.abs(np.asarray(out) - ref))
@@ -399,43 +440,6 @@ def _stage_inputs(prob, seed):
     U = rng.standard_normal((3, 1))
     T0 = np.array([0.0, 0.3, 0.6])
     return X, U, T0, np.arange(3)
-
-
-@pytest.mark.parametrize("name,prob", [
-    (n, p) for n, (_, probs) in NEW_INTEGRATORS.items() for p in probs])
-def test_new_integrator_matches_reference(name, prob):
-    """One sample period of each integrator of the slice (registered
-    name; DASPK is BDF with the Newton-Krylov corrector) for three stages
-    under the stage vmap, and its jacfwd sensitivities to (x, u), as
-    Docp.eval_derivs runs them: values within 1e-12 and the Jacobian
-    [dx/dx0, dx/du] within 1e-10 of the reference's (relative to the
-    largest entry of each).  The
-    adaptive loops run every stage in one loop whose stages stop at
-    different iterations."""
-    from hqp_tpu.utils.registry import modules as jmodules
-    kw, _ = NEW_INTEGRATORS[name]
-    ij = jmodules.create("prg_integrator", name, **kw)
-    it = modules_t.create("prg_integrator", name, **kw)
-    Fj, Ft = _problem_jax(prob), _problem_torch(prob)
-    X, U, T0, KK = _stage_inputs(prob, seed=len(name))
-
-    def fj(x, u, t0, kk):
-        return ij.solve(Fj, kk, t0, t0 + 0.5, x, u)
-
-    def ft(x, u, t0, kk):
-        return it.solve(Ft, kk, t0, t0 + 0.5, x, u)
-
-    jargs = (jnp.asarray(X), jnp.asarray(U), jnp.asarray(T0),
-             jnp.asarray(KK))
-    targs = (_t(X), _t(U), _t(T0), torch.as_tensor(KK))
-    ref = jax.vmap(fj)(*jargs)
-    out = torch.func.vmap(ft)(*targs)
-    assert np.isfinite(np.asarray(ref)).all()
-    assert _relmax(out.numpy(), ref) <= 1e-12
-    jref = jax.vmap(jax.jacfwd(fj, argnums=(0, 1)))(*jargs)
-    jout = torch.func.vmap(torch.func.jacfwd(ft, argnums=(0, 1)))(*targs)
-    assert _relmax(torch.cat(jout, dim=-1).numpy(),
-                   np.concatenate(jref, axis=-1)) <= 1e-10
 
 
 def test_adaptive_stages_take_their_own_steps():
@@ -853,17 +857,9 @@ def test_nlp_program_matches_reference(name):
          1e-12)
 
 
-@pytest.mark.parametrize("name,n", [("lqblend", 100), ("broydn3d", 60),
-                                    ("bdqrtic", 60), ("catena", 40),
-                                    ("srosenbr", 60)])
-def test_families_match_reference(name, n):
-    """Each generated family at small n through solve_generated's
-    configuration (Powell, FAMILY_HELA, Mehrotra(1e-9, 60)) with DenseKKT
-    in both packages, the dense path that stays reachable through
-    ``kkt_backend=DenseKKT()``: the same verdict, SQP and IP iterations, f
-    within 1e-9 relative.  Catena has n + 1 link equalities on n heights,
-    so its dense saddle matrix is singular: both packages end
-    "degenerate" at the first QP (ROADMAP Q3 R12)."""
+def family_reference(name, n):
+    """The reference's side of test_families_match_reference: {res, f,
+    iter, qp_iters_total}."""
     from hqp_tpu.utils.registry import modules as jmodules
     import hqp_tpu.sqp.hessian  # noqa: F401
     js = JSqpPowell(JG.FAMILIES[name](n=n), max_iters=200, eps=1e-6,
@@ -875,21 +871,8 @@ def test_families_match_reference(name, n):
         jres = js.solve()
     except JSqpError as e:
         jres = e.reason
-    ts = SqpPowell(TG.FAMILIES[name](n=n, device=CPU), max_iters=200,
-                   eps=1e-6, qp_solver=Mehrotra(eps=1e-9, max_iters=60),
-                   kkt_backend=tkkt.DenseKKT(),
-                   hela=modules.create("sqp_hela", TG.FAMILY_HELA[name]))
-    ts.init()
-    try:
-        tres = ts.solve()
-    except SqpError as e:
-        tres = e.reason
-    assert tres == jres == ("degenerate" if name == "catena" else "optimal")
-    if tres == "optimal":
-        assert (ts.iter, ts.qp_iters_total) == (js.iter, js.qp_iters_total)
-        np.testing.assert_allclose(float(ts.f), float(js.f), rtol=1e-9,
-                                   atol=1e-15)
-        assert ts.norm_inf < 1e-6
+    return dict(res=jres, f=None if js.f is None else float(js.f),
+                iter=js.iter, qp_iters_total=js.qp_iters_total)
 
 
 # -- the scenario batch: presolve, batched KKT, draws (BASELINE config 5) ----------
@@ -1559,13 +1542,6 @@ def test_plt_io_matches_reference(tmp_path):
 ESTIMATIONS = ("DynamicEst", "DTEst")
 
 
-@pytest.mark.parametrize("name", ESTIMATIONS)
-def test_estimation_solves_match_reference(name):
-    """Each estimation of chip_smoke.USER_CASES through SqpPowell in both
-    packages, then confidence(): see :func:`check_user_solve`."""
-    check_user_solve(name)
-
-
 # -- the shell slice: DID-60 through the shell, hot re-solves, diagnostics -------
 
 from hqp_tpu.shell import Shell as JShell  # noqa: E402
@@ -1662,14 +1638,14 @@ def _resume(slv, prg, ck, path):
     return s1, s2, res, float(s2.f), s2.iter, s2.qp_iters_total
 
 
-@pytest.fixture(scope="module")
-def did60_shells(tmp_path_factory):
-    """:func:`_did60_shell_drive` in the JAX package's shell and in the
-    port's (on the CPU), each in a directory of its own; the reference's
-    side also holds tests/test_diagnostics.py's wrong Jacobian through
-    prg_test (whether it raises, then the error with the tolerance
-    lifted) and the checkpoint's resumed run."""
-    tmp = tmp_path_factory.mktemp("jax")
+def shell_reference(tmp):
+    """The JAX package's side of did60_shells, made in directory ``tmp``:
+    :func:`_did60_shell_drive` in its shell, tests/test_diagnostics.py's
+    wrong Jacobian through prg_test (whether it raises, then the error
+    with the tolerance lifted) and the checkpoint's resumed run."""
+    import pathlib
+    tmp = pathlib.Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
     j = _did60_shell_drive(
         JShell(rcfile=False),
         lambda prg, x0: prg.set_pinned(jnp.asarray(x0), stage=0), tmp)
@@ -1682,6 +1658,15 @@ def did60_shells(tmp_path_factory):
     j["broken"] = jdiag.prg_test(jp, tol=np.inf)["max_rel_err"]
     j["resumed"] = _resume(JSqpPowell, lambda: JPrgDID(kmax=60), jckpt,
                            str(tmp / "ckpt.npz"))[2:]
+    return _host(j)
+
+
+@pytest.fixture(scope="module")
+def did60_shells(background, tmp_path_factory):
+    """:func:`_did60_shell_drive` in the JAX package's shell (with the rest
+    of :func:`shell_reference`, in the background) and in the port's (on
+    the CPU), each in a directory of its own."""
+    j = background.result("shell60")
     t = _did60_shell_drive(
         Shell(rcfile=False, device="cpu"),
         lambda prg, x0: prg.set_pinned(x0, stage=0),
@@ -1826,6 +1811,97 @@ def test_checkpoint_resume_matches_reference(did60_shells, tmp_path):
     assert not storages(s1) & storages(s2)
 
 
+def test_save_pytree_round_trip(tmp_path):
+    """checkpoint.save_pytree / load_pytree: nested dicts, lists, tuples
+    and dataclasses of tensors (f64, f32, int64, bool, empty) and of None
+    and plain values come back with their structure, dtypes and values,
+    as new tensors on the asked device, with the meta dict; a dataclass
+    comes back as the class of ``like``'s node, as a dict of its fields
+    without one; the file holds no pickle; anything else is refused, and
+    so is the card where there is none."""
+    from hqp_tpu_torch.qp.program import IneqGroups
+    ineq = IneqGroups(*(torch.full((2, 1), float(i)) for i in range(4)))
+    tree = {"x": torch.arange(6.0).reshape(2, 3),
+            "groups": [torch.ones(2, dtype=torch.float32),
+                       (None, torch.tensor([3, 4]), 2, "bl")],
+            "mask": torch.tensor([True, False]), "empty": torch.zeros(0),
+            "nested": {"t": (), "l": [1.5, torch.tensor(7.0)]},
+            "ineq": [ineq]}
+    path = str(tmp_path / "tree.npz")
+    tckpt.save_pytree(path, tree, meta={"iter": 3, "f": 1.25})
+    got, meta = tckpt.load_pytree(path, device="cpu",
+                                  like={"ineq": [ineq]})
+    assert meta == {"iter": 3, "f": 1.25}
+
+    def same(a, b):
+        if isinstance(b, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+            assert not b.numel() or a.untyped_storage().data_ptr() != \
+                b.untyped_storage().data_ptr()
+        elif isinstance(b, dict):
+            assert list(a) == list(b)
+            for k in b:
+                same(a[k], b[k])
+        elif isinstance(b, (list, tuple)):
+            assert type(a) is type(b) and len(a) == len(b)
+            for u, v in zip(a, b):
+                same(u, v)
+        elif isinstance(b, IneqGroups):
+            assert type(a) is IneqGroups
+            same(vars(a), vars(b))
+        else:
+            assert a == b
+
+    same(got, tree)
+    plain, _ = tckpt.load_pytree(path, device="cpu")
+    same(plain["ineq"][0], vars(ineq))
+    with np.load(path, allow_pickle=False) as z:
+        assert sorted(z.files) == sorted(
+            [f"leaf{i}" for i in range(10)] + ["tree", "meta"])
+    with pytest.raises(TypeError, match="cannot save"):
+        tckpt.save_pytree(path, {"s": {1, 2}})
+    with pytest.raises(TypeError, match="keys"):
+        tckpt.save_pytree(path, {1: torch.zeros(1)})
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tckpt.load_pytree(path)
+
+
+def test_hxi_builders_write_where_asked(tmp_path):
+    """compile_sfunction, build_sfunction, build_mex_sfunction (``out``)
+    and build_test_fmu (``out_path``) build from the port's sources at the
+    path given, as the reference's builders do, and what they build loads
+    and runs as the default build under build/ does."""
+    import ctypes
+
+    from hqp_tpu_torch.hxi import fmu, mex, sfunction, simulink
+    sdir = os.path.join(sfunction.HXI_DIR, "sfun_did.c")
+    src = os.path.join(simulink.SIMULINK_DIR, "sfun_did_demo.c")
+    built = {
+        "so": sfunction.compile_sfunction(sdir, str(tmp_path / "a" /
+                                                    "did.so")),
+        "cg": simulink.build_sfunction(src, out=str(tmp_path / "cg.so")),
+        "mex": mex.build_mex_sfunction(src, out=str(tmp_path / "m.mexa64")),
+        "fmu": fmu.build_test_fmu(str(tmp_path / "dic.fmu"))}
+    for k, path in built.items():
+        assert os.path.dirname(path).startswith(str(tmp_path)), (k, path)
+        assert os.path.isfile(path)
+    assert sorted(os.listdir(tmp_path)) == ["a", "cg.so", "dic.fmu",
+                                            "m.mexa64"]
+    mine, dflt = (sfunction.SFunction(p, params=[0.1]) for p in (
+        built["so"], sfunction.demo_sfunction_path("sfun_did")))
+    assert (mine.S.nx, mine.S.nxd, mine.S.nu, mine.S.ny) == \
+        (dflt.S.nx, dflt.S.nxd, dflt.S.nu, dflt.S.ny)
+    assert hasattr(ctypes.CDLL(built["mex"]), "mexFunction")
+    a = simulink.SimulinkSFunction(built["cg"], params=[0.05])
+    b = mex.MexSFunction(built["mex"], args="[0.05]")
+    for sf in (a, b):
+        sf.set_inputs([0.5])
+        sf.update(t=0.0)
+    np.testing.assert_array_equal(a.xd, b.xd)
+    assert fmu.Fmu(built["fmu"]).nx == fmu.Fmu(fmu.build_test_fmu()).nx
+
+
 def test_log_levels_and_timers(capsys, monkeypatch):
     """tests/test_aux.py's log levels and timers, in both packages: the
     same lines printed; a phase counts its calls and waits for no device
@@ -1867,40 +1943,83 @@ def test_log_levels_and_timers(capsys, monkeypatch):
 
 import time  # noqa: E402
 
-from tests.test_torch_sqp import Background, lower_priority  # noqa
+from tests.test_torch_sqp import (Background, _host,  # noqa: E402
+                                  lower_priority, user_reference)
 
 #: the JAX package's solves of this module made in the background
-#: (Background): each interpreter's names in turn, and the names each test
-#: reads
-BACKGROUND_GROUPS = (["crane50"], ["bio", "sharded_jax"])
+#: (Background): the chunks in the order this file's tests read them (the
+#: two longest first), the cores of the interpreters (past
+#: test_torch_sqp.py's five, the last on the first of those), and the
+#: names each test reads; the directory of the Background interpreters
+#: that run this module (they set it), where a reference may leave files
+#: for the tests
+BACKGROUND_DIR = None
+_INTEG = [f"integ-{n}-{p}" for n, p in INTEG_CASES]
+_FAMILIES = ["family-lqblend-100", "family-broydn3d-60", "family-bdqrtic-60",
+             "family-catena-40", "family-srosenbr-60"]
+BACKGROUND_CHUNKS = (
+    ["crane50"], ["bio"], ["shell60"], ["sharded_jax", "sharded_jax_rep"],
+    *([f"integ-{n}-{p}" for p in probs]
+      for n, (_, probs) in NEW_INTEGRATORS.items()),
+    _FAMILIES, ["user-DynamicEst", "user-DTEst"])
+BACKGROUND_PLACES = (5, 6, 7, 0)
 BACKGROUND_WANTS = {"test_sqp_crane50_matches_reference": ["crane50"],
                     "test_sqp_bio_matches_reference": ["bio"],
-                    "test_sharded_kkt_spawned_ranks": ["sharded_jax"]}
+                    "test_sharded_kkt_spawned_ranks": ["sharded_jax",
+                                                       "sharded_jax_rep"],
+                    "test_estimation_solves_match_reference": [
+                        "user-DynamicEst", "user-DTEst"],
+                    "test_shell_did60_matches_reference": ["shell60"],
+                    "test_mpc_hot_resolve_matches_reference": ["shell60"],
+                    "test_shell_plt_matches_reference": ["shell60"],
+                    "test_qp_dump_loads_across_packages": ["shell60"],
+                    "test_prg_test_matches_reference": ["shell60"],
+                    "test_checkpoint_resume_matches_reference": ["shell60"],
+                    "test_new_integrator_matches_reference": _INTEG,
+                    "test_families_match_reference": _FAMILIES}
 
 
 @pytest.fixture(scope="module", autouse=True)
 def background(request, tmp_path_factory):
-    """This module's Background (BACKGROUND_GROUPS)."""
-    bg = Background(request, BACKGROUND_GROUPS, BACKGROUND_WANTS,
-                    tmp_path_factory.mktemp("references"))
+    """This module's Background (BACKGROUND_CHUNKS, BACKGROUND_PLACES)."""
+    bg = Background(request, BACKGROUND_CHUNKS, BACKGROUND_WANTS,
+                    tmp_path_factory.mktemp("references"), BACKGROUND_PLACES)
     yield bg
     bg.close()
 
 
 def reference_result(name):
-    """The JAX package's side of a comparison of BACKGROUND_GROUPS: the
+    """The JAX package's side of a comparison of BACKGROUND_CHUNKS: the
     reference's SqpPowell(prg, max_iters=100), init(), solve() of the Crane
     at K = 50 or of Bio ({res, f, iter, ip}), or its sharded solve of
-    SHARD_JAX on its virtual 4-device mesh ({dx, dyn})."""
-    if name == "sharded_jax":
+    SHARD_JAX on its virtual 4-device mesh, or of SHARD_REP with
+    full_shard=False on a one-device mesh ({dx, dyn}: jitted on two
+    devices that layout corrupts XLA:CPU's heap, the runtime fault
+    tests/conftest.py and hqp_tpu/qp/kkt.py describe, and unjitted it
+    takes minutes; its direction is the same on one device); or that of an
+    estimation ("user-<name>", :func:`user_reference`), of the DID-60
+    shell ("shell60", :func:`shell_reference`, in the interpreter's own
+    directory) or of an integrator case ("integ-<name>-<prob>",
+    :func:`integ_reference`)."""
+    if name.startswith("user-"):
+        return user_reference(name[len("user-"):])
+    if name == "shell60":
+        return shell_reference(os.path.join(BACKGROUND_DIR, name))
+    if name.startswith("integ-"):
+        return integ_reference(*name.split("-")[1:])
+    if name.startswith("family-"):
+        _, fam, n = name.split("-")
+        return family_reference(fam, int(n))
+    if name.startswith("sharded_jax"):
         from hqp_tpu.parallel.scenarios import make_mesh
         from hqp_tpu.parallel.sharded_kkt import ShardedPartitionedKKT
-        K, nx, nu, mc, L, seed = SHARD_JAX
+        rep = name.endswith("_rep")
+        K, nx, nu, mc, L, seed = SHARD_REP[:6] if rep else SHARD_JAX
         qp = random_stage_qp(K, nx, nu, mc, seed=seed)
         z, w, mask = random_zw(qp, seed=1)
         r = random_rhs(qp, seed=2)
-        be = ShardedPartitionedKKT(make_mesh(4, axes=("sp",)), axis="sp",
-                                   L=L)
+        be = ShardedPartitionedKKT(make_mesh(1 if rep else 4, axes=("sp",)),
+                                   axis="sp", L=L, full_shard=not rep)
 
         def solve(qp, z, w, mask, *r):
             return be.solve(be.factor(qp, z, w, mask), qp, z, w, mask, *r)
@@ -2018,17 +2137,22 @@ from hqp_tpu_torch.parallel.sharded_kkt import ShardedPartitionedKKT  # noqa
 #: tests/test_sharded_kkt.py:33-38 at their device counts (seed K + ndev),
 #: its 8-device case at 4 ranks, and SHARD_JAX twice at 4 ranks: with the
 #: default rounds and with tests/test_distributed_mp.py's refine_rounds =
-#: reg_corr_rounds = 1
+#: reg_corr_rounds = 1; a 7th entry names the keywords (SHARD_KW): the
+#: 2-device case again with full_shard=False
 SHARD_CASES = {
     1: [(8, 3, 1, 1, 4, 9)],
-    2: [(12, 2, 2, 0, 6, 14)],
+    2: [(12, 2, 2, 0, 6, 14), (12, 2, 2, 0, 6, 14, "rep")],
     4: [(24, 3, 2, 2, 3, 28), (24, 2, 1, 1, 3, 32), (16, 2, 1, 1, 4, 5),
-        (16, 2, 1, 1, 4, 5, 1)],
+        (16, 2, 1, 1, 4, 5, "rounds1")],
 }
+SHARD_KW = {"rounds1": dict(refine_rounds=1, reg_corr_rounds=1),
+            "rep": dict(full_shard=False)}
 #: the case held against the JAX package's sharded solve on its virtual
 #: 4-device mesh (tests/test_distributed_mp.py's and test_sharded_kkt.py's
 #: oracle shape)
 SHARD_JAX = (16, 2, 1, 1, 4, 5)
+#: the case held against the JAX package's full_shard=False solve
+SHARD_REP = SHARD_CASES[2][1]
 #: the sharded scenario batch at 2 ranks: PrgDID(kmax=15, with_cns=False),
 #: four draws at scale 1e-4 (test_scenario_init_and_steps' batch)
 SHARD_SCEN = dict(kmax=15, n=4, scale=1e-4)
@@ -2083,6 +2207,7 @@ import os, sys
 import torch
 from hqp_tpu_torch.models.did import PrgDID
 from hqp_tpu_torch.parallel import distributed as D, scenarios as S
+from hqp_tpu_torch.parallel import sharded_kkt as SK
 from hqp_tpu_torch.parallel.sharded_kkt import ShardedPartitionedKKT
 from hqp_tpu_torch.qp.kkt import kkt_residual
 from hqp_tpu_torch.qp.kkt_partitioned import PartitionedKKT
@@ -2096,12 +2221,14 @@ for key, (L, kw, args) in torch.load(os.path.join(where, "cases.pt"),
                                      weights_only=False).items():
     qp, z, w, mask, *rhs = args
     be = ShardedPartitionedKKT(mesh, L=L, **kw)
+    c0 = SK.COLLECTIVES
     fac = be.factor(qp, z, w, mask)
     sol = be.solve(fac, qp, z, w, mask, *rhs)
     *_, res = kkt_residual(qp, z, w, mask, *rhs, *sol)
     out[key] = dict(dx=sol[0], dyn=sol[1]["dyn"], res=float(res),
                     dM=fac.dM, parts=fac.Minv.shape[0],
-                    L=be._choose_L(qp.K, qp.nx, qp.nu))
+                    L=be._choose_L(qp.K, qp.nx, qp.nu),
+                    collectives=SK.COLLECTIVES - c0)
 row = torch.arange(3.0) + 10.0 * rank
 out["halo"] = (be.from_left(row), be.from_right(row))
 scen = os.path.join(where, "scen.pt")
@@ -2139,8 +2266,7 @@ class RankGroups:
             os.makedirs(where)
             cases = {}
             for case in SHARD_CASES[n]:
-                kw = dict(refine_rounds=1, reg_corr_rounds=1) \
-                    if len(case) > 6 else {}
+                kw = SHARD_KW[case[6]] if len(case) > 6 else {}
                 cases[_case_key(case)] = (case[4], kw, _shard_inputs(case))
             torch.save(cases, os.path.join(where, "cases.pt"))
             if n == 2:
@@ -2221,8 +2347,10 @@ def test_sharded_kkt_one_rank():
     """SHARD_CASES[1] by ShardedPartitionedKKT at world size 1 in this
     process (a gloo group on an in-process store, made without a
     launcher): within the reference's tolerances of PartitionedKKT and
-    the true KKT residual; qp_mat_solver SpSCdist makes it; P must divide
-    over the ranks (_choose_L kept as the reference's)."""
+    the true KKT residual, in both layouts (full_shard True and False,
+    the latter with PartitionedKKT's other keywords); qp_mat_solver
+    SpSCdist makes it; P must divide over the ranks (_choose_L kept as
+    the reference's)."""
     assert tdist.init_distributed(world_size=1, device=CPU)
     try:
         mesh = tdist.global_mesh(("sp",))
@@ -2237,6 +2365,16 @@ def test_sharded_kkt_one_rank():
         got = dict(dx=sol[0], dyn=sol[1]["dyn"], res=float(res), dM=fac.dM,
                    L=be._choose_L(qp.K, qp.nx, qp.nu))
         assert fac.Minv.shape[0] == _hold_sharded(got, case)
+        # the other layout, and PartitionedKKT's keywords passed through
+        kw = dict(full_shard=False, gj="xla", refine_relative=False,
+                  refine_eps=1e-12, reg_corr_rounds=1)
+        rep = ShardedPartitionedKKT(mesh, L=case[4], **kw)
+        assert [getattr(rep, k) for k in kw] == list(kw.values())
+        assert rep == ShardedPartitionedKKT(mesh, L=case[4], **kw) != be
+        sol = rep.solve(rep.factor(qp, z, w, mask), qp, z, w, mask, *rhs)
+        *_, res = tkkt.kkt_residual(qp, z, w, mask, *rhs, *sol)
+        _hold_sharded(dict(got, dx=sol[0], dyn=sol[1]["dyn"],
+                           res=float(res)), case)
         two = tdist.global_mesh(("dp", "sp"))
         assert two.shape == (1, 1) and two.mesh_dim_names == ("dp", "sp")
         assert tscen.make_mesh(axes=("dp",)).shape == (1,)
@@ -2255,7 +2393,10 @@ def test_sharded_kkt_spawned_ranks(rank_groups, background, ranks):
     with the JAX package's sharded solve on its 4-device mesh (rtol 1e-5,
     atol 1e-6); at 2 ranks the scenario batch sharded over the ranks gives
     the rows of the unsharded batch (verdict and IP count, x within
-    1e-10)."""
+    1e-10), and its case with full_shard=False agrees with the JAX
+    package's full_shard=False solve (dx within 1e-8; see
+    :func:`reference_result`) at fewer collectives than the full-shard
+    layout."""
     outs = rank_groups.result(ranks)
     for case in SHARD_CASES[ranks]:
         key = _case_key(case)
@@ -2273,6 +2414,16 @@ def test_sharded_kkt_spawned_ranks(rank_groups, background, ranks):
         want_r = torch.zeros(3) if r == ranks - 1 else \
             torch.arange(3.0) + 10.0 * (r + 1)
         assert torch.equal(left, want_l) and torch.equal(right, want_r)
+    if ranks == 2:
+        # full_shard=False: the reference's replicated solve around the
+        # sharded reduced solves, with fewer collectives than the whole
+        # solve on each rank's rows (none in the refinement's norms)
+        ref = background.result("sharded_jax_rep")
+        got = outs[0][_case_key(SHARD_REP)]
+        np.testing.assert_allclose(_np(got["dx"]), ref["dx"], rtol=0,
+                                   atol=1e-8)
+        assert 0 < got["collectives"] < \
+            outs[0][_case_key(SHARD_REP[:6])]["collectives"]
     if ranks == 4:
         ref = background.result("sharded_jax")
         got = outs[0][_case_key(SHARD_JAX)]
@@ -2287,3 +2438,91 @@ def test_sharded_kkt_spawned_ranks(rank_groups, background, ranks):
             assert sit.tolist() == it.tolist()
             assert sres.tolist() == res.tolist() == [0] * SHARD_SCEN["n"]
             np.testing.assert_allclose(_np(sx), _np(x), rtol=0, atol=1e-10)
+
+
+# -- the rest of the integrator family, against the background's reference --------
+
+
+def integ_reference(name, prob):
+    """The reference's side of test_new_integrator_matches_reference: one
+    sample period of integrator ``name`` on ``prob`` for the three stages
+    of _stage_inputs under vmap, and its jacfwd sensitivities to (x, u):
+    {x, jac} (jac [dx/dx0, dx/du])."""
+    from hqp_tpu.utils.registry import modules as jmodules
+    ij = jmodules.create("prg_integrator", name, **NEW_INTEGRATORS[name][0])
+    Fj = _problem_jax(prob)
+    X, U, T0, KK = _stage_inputs(prob, seed=len(name))
+
+    def fj(x, u, t0, kk):
+        return ij.solve(Fj, kk, t0, t0 + 0.5, x, u)
+
+    jargs = (jnp.asarray(X), jnp.asarray(U), jnp.asarray(T0),
+             jnp.asarray(KK))
+    jac = jax.vmap(jax.jacfwd(fj, argnums=(0, 1)))(*jargs)
+    return dict(x=np.asarray(jax.vmap(fj)(*jargs)),
+                jac=np.concatenate(jac, axis=-1))
+
+
+@pytest.mark.parametrize("name,prob", INTEG_CASES)
+def test_new_integrator_matches_reference(background, name, prob):
+    """One sample period of each integrator of the slice (registered
+    name; DASPK is BDF with the Newton-Krylov corrector) for three stages
+    under the stage vmap, and its jacfwd sensitivities to (x, u), as
+    Docp.eval_derivs runs them: values within 1e-12 and the Jacobian
+    [dx/dx0, dx/du] within 1e-10 of the reference's (relative to the
+    largest entry of each; the reference's side is :func:`integ_reference`,
+    made in the background).  The adaptive loops run every stage in one
+    loop whose stages stop at different iterations."""
+    ref = background.result(f"integ-{name}-{prob}")
+    it = modules_t.create("prg_integrator", name, **NEW_INTEGRATORS[name][0])
+    Ft = _problem_torch(prob)
+    X, U, T0, KK = _stage_inputs(prob, seed=len(name))
+
+    def ft(x, u, t0, kk):
+        return it.solve(Ft, kk, t0, t0 + 0.5, x, u)
+
+    targs = (_t(X), _t(U), _t(T0), torch.as_tensor(KK))
+    out = torch.func.vmap(ft)(*targs)
+    assert np.isfinite(ref["x"]).all()
+    assert _relmax(out.numpy(), ref["x"]) <= 1e-12
+    jout = torch.func.vmap(torch.func.jacfwd(ft, argnums=(0, 1)))(*targs)
+    assert _relmax(torch.cat(jout, dim=-1).numpy(), ref["jac"]) <= 1e-10
+
+
+@pytest.mark.parametrize("name,n", [("lqblend", 100), ("broydn3d", 60),
+                                    ("bdqrtic", 60), ("catena", 40),
+                                    ("srosenbr", 60)])
+def test_families_match_reference(background, name, n):
+    """Each generated family at small n through solve_generated's
+    configuration (Powell, FAMILY_HELA, Mehrotra(1e-9, 60)) with DenseKKT
+    in both packages (the reference's in the background,
+    :func:`family_reference`), the dense path that stays reachable through
+    ``kkt_backend=DenseKKT()``: the same verdict, SQP and IP iterations, f
+    within 1e-9 relative.  Catena has n + 1 link equalities on n heights,
+    so its dense saddle matrix is singular: both packages end
+    "degenerate" at the first QP (ROADMAP Q3 R12)."""
+    js = types.SimpleNamespace(**background.result(f"family-{name}-{n}"))
+    jres = js.res
+    ts = SqpPowell(TG.FAMILIES[name](n=n, device=CPU), max_iters=200,
+                   eps=1e-6, qp_solver=Mehrotra(eps=1e-9, max_iters=60),
+                   kkt_backend=tkkt.DenseKKT(),
+                   hela=modules.create("sqp_hela", TG.FAMILY_HELA[name]))
+    ts.init()
+    try:
+        tres = ts.solve()
+    except SqpError as e:
+        tres = e.reason
+    assert tres == jres == ("degenerate" if name == "catena" else "optimal")
+    if tres == "optimal":
+        assert (ts.iter, ts.qp_iters_total) == (js.iter, js.qp_iters_total)
+        np.testing.assert_allclose(float(ts.f), float(js.f), rtol=1e-9,
+                                   atol=1e-15)
+        assert ts.norm_inf < 1e-6
+
+
+@pytest.mark.parametrize("name", ESTIMATIONS)
+def test_estimation_solves_match_reference(background, name):
+    """Each estimation of chip_smoke.USER_CASES through SqpPowell in both
+    packages (the reference's in the background), then confidence(): see
+    :func:`check_user_solve`."""
+    check_user_solve(name, **background.result("user-" + name))
