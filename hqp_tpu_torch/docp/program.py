@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from hqp_tpu_torch.qp.program import StageQP
+from hqp_tpu_torch.utils import log
 
 
 def resolve_device(device) -> torch.device:
@@ -250,6 +251,7 @@ class Docp:
                      var_mask=var_mask, con_mask=con_mask, **eqg)
         return f, qp
 
+    @log.spanned("docp.make_qp_batch")
     def make_qp_batch(self, v, Q=None):
         """:meth:`make_qp` over a batch of iterates v [B, K1, nv] (and
         Hessians Q [B, K1, nv, nv]) by ``torch.func.vmap``: objectives [B]

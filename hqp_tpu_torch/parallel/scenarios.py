@@ -31,6 +31,7 @@ from hqp_tpu_torch.parallel.distributed import (mesh_device_type,
                                                 near_square, need_group)
 from hqp_tpu_torch.qp.presolve import (merge_parallel_rows,
                                        original_row_violation)
+from hqp_tpu_torch.utils import log
 
 
 def make_mesh(n_devices=None, axes=("dp",)):
@@ -152,8 +153,10 @@ def make_scenario_solve(prg, solver, presolve_tau=None):
     largest violation of each scenario's original rows at its solution
     (None without a presolve).  The solver's backend is used as it is
     (no :func:`batched_safe`): every interior of the batch goes through
-    one K1 launch and every master through one K2 launch."""
+    one K1 launch and every master through one K2 launch.  Each call is
+    the span ``scenarios.solve``, the root of the batch's spans."""
 
+    @log.spanned("scenarios.solve")
     def solve(v, Q):
         _, qp = prg.make_qp_batch(v, Q)
         qps = qp if presolve_tau is None else \

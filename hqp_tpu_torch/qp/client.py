@@ -53,9 +53,9 @@ def _to_host(tree):
     """Every tensor of a QP or IP state as a compact host copy (a copy a
     tensor, each a counted host read when it leaves the card)."""
     def one(t):
-        if t.device.type != "cpu":
-            sync.COUNT += 1
-        return t.detach().to("cpu", copy=True)
+        def copy():
+            return t.detach().to("cpu", copy=True)
+        return copy() if t.device.type == "cpu" else sync.read(copy)
     return mk.tmap(one, tree)
 
 

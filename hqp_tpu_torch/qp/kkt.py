@@ -37,6 +37,7 @@ import torch
 
 from hqp_tpu_torch.ops import smalllin as sl
 from hqp_tpu_torch.qp.program import DenseQP, IneqGroups, StageQP
+from hqp_tpu_torch.utils import log
 from hqp_tpu_torch.utils import masked as mk
 from hqp_tpu_torch.utils.registry import modules
 from hqp_tpu_torch.utils.sync import host
@@ -115,6 +116,13 @@ def rhs_scale(qp, mask, r1, r2, r3, r4):
     return torch.maximum(s, mk.norm_inf(r4, mask, nb))
 
 
+#: refinement gates entered with ``max_rounds > 0`` (:func:`refine`) since
+#: import (reset freely by callers)
+REFINE_CALLS = 0
+#: refinement rounds run since import; a round of a batch counts once
+REFINE_ROUNDS = 0
+
+
 def refine(solve_fn, qp, z, w, mask, r1, r2, r3, r4, sol,
            eps=1e-10, max_rounds=5, unroll=False, relative=True):
     """Iterative refinement of a KKT solve (Hqp_IpMatrix::solve,
@@ -130,32 +138,45 @@ def refine(solve_fn, qp, z, w, mask, r1, r2, r3, r4, sol,
     host either way.  Each test reads one small tensor
     (:func:`~hqp_tpu_torch.utils.sync.host`), one at entry and one per
     round, and the common already-accurate case exits at the entry test.
-    A batched QP takes :func:`_refine_batch`."""
+    A batched QP takes :func:`_refine_batch`.
+
+    Every gate entered with ``max_rounds > 0`` adds one to
+    :data:`REFINE_CALLS`, and every round run (accepted or not) one to
+    :data:`REFINE_ROUNDS`.  The entry residual, the gate and the rounds
+    are the span ``kkt.refine``, each round a ``kkt.refine.round``
+    (:mod:`hqp_tpu_torch.utils.log`)."""
+    global REFINE_CALLS, REFINE_ROUNDS
     del unroll
     if max_rounds <= 0:          # no round may run: the entry test is moot
         return sol
-    if relative:
-        eps = eps * torch.clamp(rhs_scale(qp, mask, r1, r2, r3, r4),
-                                min=1.0)
-    e1, e2, e3, e4, res = kkt_residual(qp, z, w, mask, r1, r2, r3, r4, *sol)
-    if qp.nb:
-        return _refine_batch(solve_fn, qp, z, w, mask, (r1, r2, r3, r4),
-                             sol, (e1, e2, e3, e4), res, eps, max_rounds)
-    go = host(res > eps)
-    i = 0
-    while go and i < max_rounds:
-        cx, cy, cz, cw = solve_fn(e1, e2, e3, e4)
-        dx, dy, dz, dw = sol
-        new = (dx + cx, mk.add(dy, cy), mk.add(dz, cz), mk.add(dw, cw))
-        ne1, ne2, ne3, ne4, nres = kkt_residual(qp, z, w, mask,
-                                                r1, r2, r3, r4, *new)
-        better, above = host(torch.stack([nres < res, nres > eps]))
-        if not better:
-            break
-        sol, (e1, e2, e3, e4), res = new, (ne1, ne2, ne3, ne4), nres
-        go = above
-        i += 1
-    return sol
+    REFINE_CALLS += 1
+    with log.timers.span("kkt.refine"):
+        if relative:
+            eps = eps * torch.clamp(rhs_scale(qp, mask, r1, r2, r3, r4),
+                                    min=1.0)
+        e1, e2, e3, e4, res = kkt_residual(qp, z, w, mask, r1, r2, r3, r4,
+                                           *sol)
+        if qp.nb:
+            return _refine_batch(solve_fn, qp, z, w, mask, (r1, r2, r3, r4),
+                                 sol, (e1, e2, e3, e4), res, eps, max_rounds)
+        go = host(res > eps)
+        i = 0
+        while go and i < max_rounds:
+            with log.timers.span("kkt.refine.round"):
+                REFINE_ROUNDS += 1
+                cx, cy, cz, cw = solve_fn(e1, e2, e3, e4)
+                dx, dy, dz, dw = sol
+                new = (dx + cx, mk.add(dy, cy), mk.add(dz, cz),
+                       mk.add(dw, cw))
+                ne1, ne2, ne3, ne4, nres = kkt_residual(qp, z, w, mask,
+                                                        r1, r2, r3, r4, *new)
+                better, above = host(torch.stack([nres < res, nres > eps]))
+            if not better:
+                break
+            sol, (e1, e2, e3, e4), res = new, (ne1, ne2, ne3, ne4), nres
+            go = above
+            i += 1
+        return sol
 
 
 def _refine_batch(solve_fn, qp, z, w, mask, rhs, sol, errs, res, eps,
@@ -165,19 +186,24 @@ def _refine_batch(solve_fn, qp, z, w, mask, rhs, sol, errs, res, eps,
     live (residual above its own ``eps``, every round so far accepted,
     fewer than ``max_rounds``); each round solves for every problem and
     keeps the correction only where the problem is live and its residual
-    fell.  One host read at entry and one per round."""
+    fell.  One host read at entry and one per round.  A round adds one to
+    :data:`REFINE_ROUNDS` for the whole batch and is one
+    ``kkt.refine.round`` span."""
+    global REFINE_ROUNDS
     live = res > eps
     i = 0
     while i < max_rounds and host(live.any()):
-        cx, cy, cz, cw = solve_fn(*errs)
-        dx, dy, dz, dw = sol
-        new = (dx + cx, mk.add(dy, cy), mk.add(dz, cz), mk.add(dw, cw))
-        *nerrs, nres = kkt_residual(qp, z, w, mask, *rhs, *new)
-        better = live & (nres < res)
-        sol = mk.sel(better, new, sol)
-        errs = mk.sel(better, tuple(nerrs), errs)
-        res = torch.where(better, nres, res)
-        live = better & (nres > eps)
+        with log.timers.span("kkt.refine.round"):
+            REFINE_ROUNDS += 1
+            cx, cy, cz, cw = solve_fn(*errs)
+            dx, dy, dz, dw = sol
+            new = (dx + cx, mk.add(dy, cy), mk.add(dz, cz), mk.add(dw, cw))
+            *nerrs, nres = kkt_residual(qp, z, w, mask, *rhs, *new)
+            better = live & (nres < res)
+            sol = mk.sel(better, new, sol)
+            errs = mk.sel(better, tuple(nerrs), errs)
+            res = torch.where(better, nres, res)
+            live = better & (nres > eps)
         i += 1
     return sol
 

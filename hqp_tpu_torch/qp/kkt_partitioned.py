@@ -24,6 +24,12 @@ A batch of QPs (leading batch axes on every field, a scenario batch) is
 factored and solved at once: the B*P interiors of the whole batch go
 through ONE K1 launch per factorization, flattened to [B*P, s, s], and
 the B masters through one K2 launch per master solve on [B, P+1, nx, nx].
+
+Spans (:mod:`hqp_tpu_torch.utils.log`): ``partitioned.factor`` with its
+children ``partitioned.interior`` (Ruiz scaling, K1 and the inner-refined
+couplings) and ``partitioned.master`` (the master's assembly and
+equilibration); ``partitioned.solve`` with a ``partitioned.reduced`` a
+reduced solve and the refinement's ``kkt.refine``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from hqp_tpu_torch.ops import blocktri, gj_cuda, thomas_cuda
 from hqp_tpu_torch.ops import smalllin as sl
 from hqp_tpu_torch.qp import kkt as K_
 from hqp_tpu_torch.qp.program import StageQP
+from hqp_tpu_torch.utils import log
 from hqp_tpu_torch.utils.registry import modules
 
 
@@ -416,6 +423,7 @@ class PartitionedKKT:
         Hb = H[..., ::L, :nx, :nx]               # [P+1, nx, nx] boundary
         return Hs, As, mm_int, mm_e, Hb, H[..., -1, :, :]
 
+    @log.spanned("partitioned.interior")
     def _interior_factor(self, MII, MIB):
         """Ruiz-equilibrated interior inverse (kernel K1 at the factor
         dtype) + inner-refined couplings W.  Returns (Minv, Dd, MII_s, W).
@@ -456,6 +464,7 @@ class PartitionedKKT:
         PKxx = HK[..., :nx, :nx] - HK[..., :nx, nx:] @ KgainK
         return LuuK, KgainK, PKxx
 
+    @log.spanned("partitioned.master")
     def _master_build(self, Schur, Hb, PKxx, nx):
         """Assemble and factor the boundary master block-tridiagonal
         system from the per-partition Schur blocks ([B, P, 2nx, 2nx] for a
@@ -480,6 +489,7 @@ class PartitionedKKT:
         stage-equality penalty blocks."""
         return K_._stage_hessians(qp, z, w, mask) + K_.stage_eq_penalty(qp)
 
+    @log.spanned("partitioned.factor")
     def factor(self, qp: StageQP, z, w, mask):
         nx = qp.nx
         H = self._hess(qp, z, w, mask)
@@ -499,6 +509,7 @@ class PartitionedKKT:
 
     # -- solve ---------------------------------------------------------------
 
+    @log.spanned("partitioned.reduced")
     def solve_reduced(self, fac: PartFactors, qp: StageQP, g, r2dyn):
         """Solve [-H A'; A 0][dx; dy] = [g; r2] via the partition Schur."""
         nx, nu, nv = qp.nx, qp.nu, qp.nv
@@ -547,6 +558,7 @@ class PartitionedKKT:
                        dim=-2)
         return dx, dy
 
+    @log.spanned("partitioned.solve")
     def solve(self, fac, qp: StageQP, z, w, mask, r1, r2, r3, r4):
         """Base solve with ``reg_corr_rounds`` analytic corrections of the
         dual regularization (a Neumann series: re-solve in the reduced

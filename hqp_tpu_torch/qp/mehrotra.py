@@ -37,6 +37,13 @@ centrality correction solves with the same factorization, each taken per
 problem only where it lengthens the step, with no host read) and
 ``cheap_predictor`` (the affine predictor by ``backend.with_refine(0)``
 where the backend has it, as ``PartitionedKKT`` does).
+
+Spans (:mod:`hqp_tpu_torch.utils.log`): ``mehrotra.solve`` (a whole solve),
+``mehrotra.cold_start``, and ``mehrotra.step`` with its phases
+``mehrotra.residuals`` (up to the step branch's read),
+``mehrotra.predictor`` (factorization and affine solve),
+``mehrotra.corrector`` (centering and corrector solves) and
+``mehrotra.step_length`` (step length and update).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import dataclasses
 
 import torch
 
+from hqp_tpu_torch.utils import log
 from hqp_tpu_torch.utils import masked as mk
 from hqp_tpu_torch.utils.registry import modules
 from hqp_tpu_torch.utils.sync import host
@@ -162,6 +170,7 @@ class Mehrotra:
 
     # -- cold start (Hqp_IpsMehrotra.C:209-327) ------------------------------
 
+    @log.spanned("mehrotra.cold_start")
     def cold_start(self, qp, state: IPState):
         nb = qp.nb
         if self._no_ineq(qp):
@@ -224,175 +233,188 @@ class Mehrotra:
 
     # -- one predictor-corrector step (Hqp_IpsMehrotra.C:355-693) ------------
 
+    @log.spanned("mehrotra.step")
     def step(self, qp, state: IPState) -> IPState:
         """One step; for a batch, of every problem, each taking its own
-        branch (the factorization is skipped when none takes a step)."""
+        branch (the factorization is skipped when none takes a step).
+        Its spans: the residuals and tests up to the step branch's read,
+        the factorization and affine predictor, the centering and
+        corrector solve(s), and the step length and update."""
         if self._no_ineq(qp):
             self._unbatched(qp, "the equality-only branch")
             return self._step_eq_only(qp, state)
-        eps = self.eps
-        nb = qp.nb
-        mask = qp.ineq_mask()
-        m = torch.clamp(mk.count(mask, nb), min=1.0)
-        x, y, z, w = state.x, state.y, state.z, state.w
+        with log.timers.span("mehrotra.residuals"):
+            eps = self.eps
+            nb = qp.nb
+            mask = qp.ineq_mask()
+            m = torch.clamp(mk.count(mask, nb), min=1.0)
+            x, y, z, w = state.x, state.y, state.z, state.w
 
-        # residuals of the KKT conditions (C:425-445)
-        Qx = qp.matvec_Q(x)
-        gap = (mk.inner(x, Qx + qp.c, nb=nb)
-               + mk.inner(y, qp.eq_offsets(), qp.eq_mask(), nb)
-               + mk.inner(z, qp.ineq_offsets(), mask, nb))
-        r1 = torch.where(
-            qp.x_mask(),
-            Qx + qp.c - qp.matvec_eqT(y) - qp.matvec_ineqT(
-                mk.where(mask, z, 0.0)), 0.0)
-        r2 = mk.scale(-1.0, qp.eval_eq(x))
-        r3 = mk.where(mask, mk.sub(w, qp.eval_ineq(x)), 0.0)
-        r4 = mk.where(mask, mk.tmap(lambda a, b: -a * b, z, w), 0.0)
-        mu = mk.inner(z, w, mask, nb) / m
+            # residuals of the KKT conditions (C:425-445)
+            Qx = qp.matvec_Q(x)
+            gap = (mk.inner(x, Qx + qp.c, nb=nb)
+                   + mk.inner(y, qp.eq_offsets(), qp.eq_mask(), nb)
+                   + mk.inner(z, qp.ineq_offsets(), mask, nb))
+            r1 = torch.where(
+                qp.x_mask(),
+                Qx + qp.c - qp.matvec_eqT(y) - qp.matvec_ineqT(
+                    mk.where(mask, z, 0.0)), 0.0)
+            r2 = mk.scale(-1.0, qp.eval_eq(x))
+            r3 = mk.where(mask, mk.sub(w, qp.eval_ineq(x)), 0.0)
+            r4 = mk.where(mask, mk.tmap(lambda a, b: -a * b, z, w), 0.0)
+            mu = mk.inner(z, w, mask, nb) / m
 
-        norm_r = torch.maximum(
-            torch.maximum(mk.norm_inf(r1, nb=nb),
-                          mk.norm_inf(r2, qp.eq_mask(), nb)),
-            mk.norm_inf(r3, mask, nb))
-        norm_data = qp.norm_data()
+            norm_r = torch.maximum(
+                torch.maximum(mk.norm_inf(r1, nb=nb),
+                              mk.norm_inf(r2, qp.eq_mask(), nb)),
+                mk.norm_inf(r3, mask, nb))
+            norm_data = qp.norm_data()
 
-        first = state.iter == 0
-        mu0 = torch.where(first, mu, state.mu0)
-        norm_r0 = torch.where(first, norm_r, state.norm_r0)
+            first = state.iter == 0
+            mu0 = torch.where(first, mu, state.mu0)
+            norm_r0 = torch.where(first, norm_r, state.norm_r0)
 
-        phi = (norm_r + gap.abs()) / norm_data
-        if nb:
-            phimin = state.phimin.scatter(-1, state.iter[..., None],
-                                          phi[..., None])
-        else:
-            phimin = state.phimin.index_put((state.iter.reshape(1),),
-                                            phi.reshape(1))
+            phi = (norm_r + gap.abs()) / norm_data
+            if nb:
+                phimin = state.phimin.scatter(-1, state.iter[..., None],
+                                              phi[..., None])
+            else:
+                phimin = state.phimin.index_put((state.iter.reshape(1),),
+                                                phi.reshape(1))
 
-        # hot start snapshot while still far from the central path (C:475-478)
-        snap = phi > eps ** 0.3333
-        z_hot = mk.sel(snap, z, state.z_hot)
-        w_hot = mk.sel(snap, w, state.w_hot)
+            # hot start snapshot while still far from the central path
+            # (C:475-478)
+            snap = phi > eps ** 0.3333
+            z_hot = mk.sel(snap, z, state.z_hot)
+            w_hot = mk.sel(snap, w, state.w_hot)
 
-        # termination / abort tests (C:482-519)
-        iters = torch.arange(self.max_iters + 1, device=phi.device)
-        it = state.iter[..., None]
-        seen = iters <= it
-        pm = torch.where(seen, phimin, float("inf")).amin(-1)
-        # never optimal at entry (iter 0): a cold start enters with zero
-        # (x, y), a hot start with the previous solution
-        optimal = (mu <= eps) & (norm_r <= eps * norm_data) \
-            & (state.iter > 0)
-        subopt = (phi > eps) & (phi >= 1.0e4 * pm)
-        seen30 = (iters >= 1) & (iters <= it - 30)
-        pm30 = torch.where(seen30, phimin, float("inf")).amin(-1)
-        slow = (state.iter >= 30) & (pm >= 0.5 * pm30)
-        blowup = (norm_r > eps * norm_data) & \
-            (norm_r / mu >= 1.0e8 * norm_r0 / mu0)
+            # termination / abort tests (C:482-519)
+            iters = torch.arange(self.max_iters + 1, device=phi.device)
+            it = state.iter[..., None]
+            seen = iters <= it
+            pm = torch.where(seen, phimin, float("inf")).amin(-1)
+            # never optimal at entry (iter 0): a cold start enters with zero
+            # (x, y), a hot start with the previous solution
+            optimal = (mu <= eps) & (norm_r <= eps * norm_data) \
+                & (state.iter > 0)
+            subopt = (phi > eps) & (phi >= 1.0e4 * pm)
+            seen30 = (iters >= 1) & (iters <= it - 30)
+            pm30 = torch.where(seen30, phimin, float("inf")).amin(-1)
+            slow = (state.iter >= 30) & (pm >= 0.5 * pm30)
+            blowup = (norm_r > eps * norm_data) & \
+                (norm_r / mu >= 1.0e8 * norm_r0 / mu0)
 
-        # the blow-up test sets Suboptimal but does NOT skip the step
-        # (C:513-519); the solve loop exits after this final step
-        result = torch.where(
-            optimal, OPTIMAL,
-            torch.where(subopt | slow | blowup, SUBOPTIMAL, ITERATING))
-        take_step = (~optimal) & (~subopt) & (~slow)
+            # the blow-up test sets Suboptimal but does NOT skip the step
+            # (C:513-519); the solve loop exits after this final step
+            result = torch.where(
+                optimal, OPTIMAL,
+                torch.where(subopt | slow | blowup, SUBOPTIMAL, ITERATING))
+            take_step = (~optimal) & (~subopt) & (~slow)
 
-        base = dataclasses.replace(
-            state, z_hot=z_hot, w_hot=w_hot, gap=gap, test=phi, mu0=mu0,
-            norm_r0=norm_r0, phimin=phimin, result=result)
-        if not host(take_step.any() if nb else take_step):
+            base = dataclasses.replace(
+                state, z_hot=z_hot, w_hot=w_hot, gap=gap, test=phi, mu0=mu0,
+                norm_r0=norm_r0, phimin=phimin, result=result)
+            go = host(take_step.any() if nb else take_step)
+        if not go:
             return base
 
-        # factorization + affine predictor (C:524-562)
-        fac = self.backend.factor(qp, z, w, mask)
-        pred_be = self.backend.with_refine(0) \
-            if self.cheap_predictor and \
-            hasattr(self.backend, "with_refine") else self.backend
-        dxa, dya, dza, dwa = pred_be.solve(
-            fac, qp, z, w, mask, r1, r2, r3, r4)
-        alpha_aff = torch.clamp(
-            torch.minimum(mk.ratio_min(z, dza, mask, nb),
-                          mk.ratio_min(w, dwa, mask, nb)), 0.0, 1.0)
+        with log.timers.span("mehrotra.predictor"):
+            # factorization + affine predictor (C:524-562)
+            fac = self.backend.factor(qp, z, w, mask)
+            pred_be = self.backend.with_refine(0) \
+                if self.cheap_predictor and \
+                hasattr(self.backend, "with_refine") else self.backend
+            dxa, dya, dza, dwa = pred_be.solve(
+                fac, qp, z, w, mask, r1, r2, r3, r4)
+            alpha_aff = torch.clamp(
+                torch.minimum(mk.ratio_min(z, dza, mask, nb),
+                              mk.ratio_min(w, dwa, mask, nb)), 0.0, 1.0)
 
-        def corrector(sig):
-            smm = sig * mu
-            r4c = mk.where(
-                mask,
-                mk.tmap(lambda zi, wi, a, b:
-                        -(zi * wi + a * b - mk.bc(smm, zi)),
-                        z, w, dza, dwa), 0.0)
-            return self.backend.solve(fac, qp, z, w, mask, r1, r2, r3, r4c)
+        with log.timers.span("mehrotra.corrector"):
+            def corrector(sig):
+                smm = sig * mu
+                r4c = mk.where(
+                    mask,
+                    mk.tmap(lambda zi, wi, a, b:
+                            -(zi * wi + a * b - mk.bc(smm, zi)),
+                            z, w, dza, dwa), 0.0)
+                return self.backend.solve(fac, qp, z, w, mask,
+                                          r1, r2, r3, r4c)
 
-        if self.mod_terlaky:
-            # Terlaky centering (C:584-591), sigma clamped at 1 as the
-            # reference clamps it (the SIGMA_CAP rows can inflate t)
-            gamma = 1.0e-4 ** 0.25
-            t = mk.vmax(mk.tmap(
-                lambda a, b, zi, wi: torch.where(a * b > 0.0,
-                                                 a * b / zi / wi, 0.0),
-                dza, dwa, z, w), mask, nb)
-            t = torch.clamp(t, min=0.0)
-            sigma = torch.clamp(gamma * (t + 1.0 - alpha_aff)
-                                / (1.0 - gamma), max=1.0)
-            dirs = corrector(sigma)
-            alpha_corr = torch.clamp(
-                torch.minimum(mk.ratio_min(z, dirs[2], mask, nb),
-                              mk.ratio_min(w, dirs[3], mask, nb)), 0.0, 1.0)
-            # pure centering when the corrector is blocked (C:604-623):
-            # the reference's branch, per problem on a batch
-            redo = (alpha_aff < 0.1) | \
-                (alpha_corr < gamma * gamma / 2.0 / m / m)
-            if host(redo.any() if nb else redo):
-                dirs = mk.sel(redo, corrector(gamma / (1.0 - gamma)), dirs)
-            dx, dy, dz, dw = dirs
-        else:
-            # Mehrotra's original centering (C:578-583)
-            zp = mk.where(mask, mk.axpy(alpha_aff, dza, z), 0.0)
-            wp = mk.where(mask, mk.axpy(alpha_aff, dwa, w), 0.0)
-            mu_aff = mk.inner(zp, wp, mask, nb) / m
-            sigma = (mu_aff / mu) ** 3.0
-            dx, dy, dz, dw = corrector(sigma)
+            if self.mod_terlaky:
+                # Terlaky centering (C:584-591), sigma clamped at 1 as the
+                # reference clamps it (the SIGMA_CAP rows can inflate t)
+                gamma = 1.0e-4 ** 0.25
+                t = mk.vmax(mk.tmap(
+                    lambda a, b, zi, wi: torch.where(a * b > 0.0,
+                                                     a * b / zi / wi, 0.0),
+                    dza, dwa, z, w), mask, nb)
+                t = torch.clamp(t, min=0.0)
+                sigma = torch.clamp(gamma * (t + 1.0 - alpha_aff)
+                                    / (1.0 - gamma), max=1.0)
+                dirs = corrector(sigma)
+                alpha_corr = torch.clamp(
+                    torch.minimum(mk.ratio_min(z, dirs[2], mask, nb),
+                                  mk.ratio_min(w, dirs[3], mask, nb)),
+                    0.0, 1.0)
+                # pure centering when the corrector is blocked (C:604-623):
+                # the reference's branch, per problem on a batch
+                redo = (alpha_aff < 0.1) | \
+                    (alpha_corr < gamma * gamma / 2.0 / m / m)
+                if host(redo.any() if nb else redo):
+                    dirs = mk.sel(redo, corrector(gamma / (1.0 - gamma)),
+                                  dirs)
+                dx, dy, dz, dw = dirs
+            else:
+                # Mehrotra's original centering (C:578-583)
+                zp = mk.where(mask, mk.axpy(alpha_aff, dza, z), 0.0)
+                wp = mk.where(mask, mk.axpy(alpha_aff, dwa, w), 0.0)
+                mu_aff = mk.inner(zp, wp, mask, nb) / m
+                sigma = (mu_aff / mu) ** 3.0
+                dx, dy, dz, dw = corrector(sigma)
 
-        # Mehrotra's adaptive step size (C:625-669)
-        alpha = self._adaptive_alpha(z, w, dz, dw, mask, m, nb)
+        with log.timers.span("mehrotra.step_length"):
+            # Mehrotra's adaptive step size (C:625-669)
+            alpha = self._adaptive_alpha(z, w, dz, dw, mask, m, nb)
 
-        # Gondzio's centrality correctors (beyond the reference; Gondzio
-        # 1996): push the trial products into [0.1, 10] sigma mu by
-        # correction solves with the same factorization, each taken per
-        # problem only where it lengthens the step
-        mu_t = torch.clamp(sigma * mu, min=1e-30)
-        for _ in range(self.gondzio_correctors):
-            abar = torch.clamp(2.0 * alpha + 0.1, max=1.0)
-            zt = mk.where(mask, mk.axpy(abar, dz, z), 1.0)
-            wt = mk.where(mask, mk.axpy(abar, dw, w), 1.0)
-            pr = mk.tmap(lambda a, b: a * b, zt, wt)
-            tgt = mk.tmap(lambda p: torch.clamp(p, 0.1 * mk.bc(mu_t, p),
-                                                10.0 * mk.bc(mu_t, p)), pr)
-            r4g = mk.where(mask, mk.sub(tgt, pr), 0.0)
-            cx, cy, cz, cw = self.backend.solve(
-                fac, qp, z, w, mask, torch.zeros_like(r1), mk.fill(r2, 0.0),
-                mk.fill(r3, 0.0), r4g)
-            nd = (dx + cx, mk.add(dy, cy), mk.add(dz, cz), mk.add(dw, cw))
-            na = self._adaptive_alpha(z, w, nd[2], nd[3], mask, m, nb)
-            take = na > alpha
-            dx, dy, dz, dw = mk.sel(take, nd, (dx, dy, dz, dw))
-            alpha = torch.where(take, na, alpha)
+            # Gondzio's centrality correctors (beyond the reference; Gondzio
+            # 1996): push the trial products into [0.1, 10] sigma mu by
+            # correction solves with the same factorization, each taken per
+            # problem only where it lengthens the step
+            mu_t = torch.clamp(sigma * mu, min=1e-30)
+            for _ in range(self.gondzio_correctors):
+                abar = torch.clamp(2.0 * alpha + 0.1, max=1.0)
+                zt = mk.where(mask, mk.axpy(abar, dz, z), 1.0)
+                wt = mk.where(mask, mk.axpy(abar, dw, w), 1.0)
+                pr = mk.tmap(lambda a, b: a * b, zt, wt)
+                tgt = mk.tmap(lambda p: torch.clamp(p, 0.1 * mk.bc(mu_t, p),
+                                                    10.0 * mk.bc(mu_t, p)), pr)
+                r4g = mk.where(mask, mk.sub(tgt, pr), 0.0)
+                cx, cy, cz, cw = self.backend.solve(
+                    fac, qp, z, w, mask, torch.zeros_like(r1),
+                    mk.fill(r2, 0.0), mk.fill(r3, 0.0), r4g)
+                nd = (dx + cx, mk.add(dy, cy), mk.add(dz, cz), mk.add(dw, cw))
+                na = self._adaptive_alpha(z, w, nd[2], nd[3], mask, m, nb)
+                take = na > alpha
+                dx, dy, dz, dw = mk.sel(take, nd, (dx, dy, dz, dw))
+                alpha = torch.where(take, na, alpha)
 
-        x_n = x + mk.bc(alpha, x) * dx
-        y_n = mk.axpy(alpha, dy, y)
-        z_n = mk.where(mask, mk.axpy(alpha, dz, z), 1.0)
-        w_n = mk.where(mask, mk.axpy(alpha, dw, w), 1.0)
+            x_n = x + mk.bc(alpha, x) * dx
+            y_n = mk.axpy(alpha, dy, y)
+            z_n = mk.where(mask, mk.axpy(alpha, dz, z), 1.0)
+            w_n = mk.where(mask, mk.axpy(alpha, dw, w), 1.0)
 
-        mu_n = mk.inner(z_n, w_n, mask, nb) / m
-        bad = ~(torch.isfinite(mu_n)
-                & torch.isfinite(mk.norm_inf(dx, nb=nb)))
+            mu_n = mk.inner(z_n, w_n, mask, nb) / m
+            bad = ~(torch.isfinite(mu_n)
+                    & torch.isfinite(mk.norm_inf(dx, nb=nb)))
 
-        stepped = dataclasses.replace(
-            base, x=mk.sel(bad, x, x_n), y=mk.sel(bad, y, y_n),
-            z=mk.sel(bad, z, z_n), w=mk.sel(bad, w, w_n), alpha=alpha,
-            iter=base.iter + (~bad).to(torch.int64),
-            result=torch.where(bad, DEGENERATE, base.result))
-        # a batch: the reference's lax.cond on take_step, per problem
-        return mk.sel(take_step, stepped, base) if nb else stepped
+            stepped = dataclasses.replace(
+                base, x=mk.sel(bad, x, x_n), y=mk.sel(bad, y, y_n),
+                z=mk.sel(bad, z, z_n), w=mk.sel(bad, w, w_n), alpha=alpha,
+                iter=base.iter + (~bad).to(torch.int64),
+                result=torch.where(bad, DEGENERATE, base.result))
+            # a batch: the reference's lax.cond on take_step, per problem
+            return mk.sel(take_step, stepped, base) if nb else stepped
 
     def _step_eq_only(self, qp, state: IPState) -> IPState:
         """Newton step for a program without inequality constraints
@@ -495,6 +517,7 @@ class Mehrotra:
                 return st
             st = mk.sel(live, self.step(qp, st), st)
 
+    @log.spanned("mehrotra.solve")
     def solve_device(self, qp, state: IPState) -> IPState:
         """Cold start plus the loop to termination (the reference's
         ``solve_device``): the whole solve of one QP or, with leading
@@ -512,24 +535,25 @@ class Mehrotra:
             if hot:
                 self._unbatched(qp, "a hot start")
             return self.solve_device(qp, state)
-        if hasattr(self.backend, "prepare"):
-            # the host-sparse backends copy the loop-invariant Q, C and A
-            # to the host once per solve (hqp_tpu/qp/mehrotra.py:582-587)
-            self.backend.prepare(qp)
-        fail_iters = 0
-        if hot:
-            st = self.hot_start(qp, state)
-            st, failed, res, it = self._solve_loop(
-                qp, st, True, min(self.max_warm_iters, self.max_iters))
-            if failed or res != OPTIMAL:
-                fail_iters = it
-                st = self.cold_start(qp, st)
-                st = self._solve_loop(
-                    qp, st, False, max(self.max_iters - fail_iters, 1))[0]
-        else:
-            st = self.cold_start(qp, state)
-            st = self._solve_loop(qp, st, False, self.max_iters)[0]
-        return dataclasses.replace(st, iter=st.iter + fail_iters)
+        with log.timers.span("mehrotra.solve"):
+            if hasattr(self.backend, "prepare"):
+                # the host-sparse backends copy the loop-invariant Q, C and A
+                # to the host once per solve (hqp_tpu/qp/mehrotra.py:582-587)
+                self.backend.prepare(qp)
+            fail_iters = 0
+            if hot:
+                st = self.hot_start(qp, state)
+                st, failed, res, it = self._solve_loop(
+                    qp, st, True, min(self.max_warm_iters, self.max_iters))
+                if failed or res != OPTIMAL:
+                    fail_iters = it
+                    st = self.cold_start(qp, st)
+                    st = self._solve_loop(
+                        qp, st, False, max(self.max_iters - fail_iters, 1))[0]
+            else:
+                st = self.cold_start(qp, state)
+                st = self._solve_loop(qp, st, False, self.max_iters)[0]
+            return dataclasses.replace(st, iter=st.iter + fail_iters)
 
 
 modules.register("sqp_qp_solver", "Mehrotra")(Mehrotra)

@@ -21,8 +21,10 @@ import dataclasses
 import torch
 
 from hqp_tpu_torch.qp.program import StageQP
+from hqp_tpu_torch.utils import log
 
 
+@log.spanned("presolve.merge")
 def merge_parallel_rows(qp: StageQP, tau: float = 0.02) -> StageQP:
     """Fold tau-parallel general rows into box bounds (see module doc)."""
     if qp.mc == 0:
@@ -67,6 +69,7 @@ def merge_parallel_rows(qp: StageQP, tau: float = 0.02) -> StageQP:
     return dataclasses.replace(qp, lb=lb, ub=ub, d_lo=d_lo, d_up=d_up)
 
 
+@log.spanned("presolve.violation")
 def original_row_violation(qp: StageQP, x) -> torch.Tensor:
     """Largest violation of the ORIGINAL general rows of ``qp`` at ``x``
     (the honesty measure reported beside presolved solves); one per

@@ -12,6 +12,8 @@ them hardest (Crane at 50 stages, Bio through IMP) are solved end to end
 by both packages.
 """
 
+import collections
+import contextlib
 import dataclasses
 import types
 
@@ -1937,6 +1939,145 @@ def test_log_levels_and_timers(capsys, monkeypatch):
     assert sorted(rep) == ["factor", "solve"] and sync.COUNT == n0
     t.reset()
     assert t.report() == {}
+
+
+# -- the port's spans and refinement counters --------------------------------
+
+#: the modes of traced_solves: tracing off, tracing on, tracing on under a
+#: CPU torch.profiler
+TRACE_MODES = ("off", "on", "on_profiled")
+
+
+@pytest.fixture(scope="module")
+def traced_solves():
+    """Two problems of _scenario_batch's batch presolved and solved by
+    Mehrotra(PartitionedKKT(L=5)) in each of TRACE_MODES, with
+    torch.cuda.synchronize raising throughout: the states, the deltas of
+    sync.COUNT and of the refinement counters, log.timers' records and the
+    profiler's user annotations (name, start_ns) in start order.  A
+    profile first opens one record_function of its own: the first range
+    of a process pays a one-off set-up before its clock reading."""
+    prg, v, Q = _scenario_batch()
+    v, Q = v[:2], Q[:2]
+    solve = tscen.make_scenario_solve(
+        prg, Mehrotra(backend=PartitionedKKT(L=5)), presolve_tau=0.02)
+
+    def no_sync(*a):
+        raise AssertionError("tracing synchronized the device")
+
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "synchronize", no_sync)
+        for mode in TRACE_MODES:
+            tlog.timers.reset()
+            n0, c0, r0 = sync.COUNT, tkkt.REFINE_CALLS, tkkt.REFINE_ROUNDS
+            profiled = mode.endswith("profiled")
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) \
+                if profiled else contextlib.nullcontext()
+            tlog.set_tracing(mode.startswith("on"))
+            try:
+                with prof:
+                    with torch.profiler.record_function("warm-up"):
+                        pass
+                    st, _ = solve(v, Q)
+            finally:
+                tlog.set_tracing(False)
+            events = sorted(
+                (e.start_ns(), e.name())
+                for e in prof.profiler.kineto_results.events()
+                if e.is_user_annotation() and e.name() != "warm-up") \
+                if profiled else []
+            out[mode] = dict(
+                st=st, syncs=sync.COUNT - n0,
+                calls=tkkt.REFINE_CALLS - c0,
+                rounds=tkkt.REFINE_ROUNDS - r0,
+                records=list(tlog.timers.records),
+                events=[(n, t) for t, n in events])
+    tlog.timers.reset()
+    return out
+
+
+def _state_leaves(st):
+    return [st.x, st.iter, *tmk.leaves(st.y), *tmk.leaves(st.z),
+            *tmk.leaves(st.w)]
+
+
+def test_tracing_off_records_nothing_and_changes_no_bit(traced_solves):
+    """Off, a span is the one shared no-op context: no record, and no
+    record_function range under a profiler; on, the batch's x, y, z, w and
+    iter are the same to the bit, with the same host reads and refinement
+    counts, and the same spans with a profiler and without."""
+    off = traced_solves["off"]
+    assert off["records"] == []
+    assert off["calls"] > 0 and off["rounds"] > 0
+    assert tlog.timers.span("a") is tlog.timers.span("b")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tlog.timers.span("mehrotra.solve"):
+            pass
+    assert tlog.timers.records == [] and not any(
+        e.is_user_annotation() for e in prof.profiler.kineto_results.events())
+    for mode in ("on", "on_profiled"):
+        on = traced_solves[mode]
+        for key in ("syncs", "calls", "rounds"):
+            assert on[key] == off[key], (mode, key)
+        for a, b in zip(_state_leaves(off["st"]), _state_leaves(on["st"]),
+                        strict=True):
+            assert torch.equal(a, b), mode
+    assert [r.name for r in traced_solves["on"]["records"]] == \
+        [r.name for r in traced_solves["on_profiled"]["records"]]
+
+
+def test_spans_nest_under_one_unit(traced_solves):
+    """Every refinement round sits in kkt.refine in partitioned.solve in a
+    phase of Mehrotra's solve; all spans share the root's unit, their self
+    times sum to its duration, the steps, rounds and reads add up."""
+    on = traced_solves["on"]
+    recs = on["records"]
+    by_id = {r.id: r for r in recs}
+    root = recs[0]
+    assert root.name == "scenarios.solve" and root.parent is None
+    assert {r.unit for r in recs} == {root.id}
+    assert all(r.end_ns >= r.start_ns >= root.start_ns for r in recs)
+    assert sum(r.self_ns for r in recs) == root.end_ns - root.start_ns
+
+    def chain(r):
+        names = []
+        while r.parent is not None:
+            r = by_id[r.parent]
+            names.append(r.name)
+        return names
+
+    rounds = [r for r in recs if r.name == "kkt.refine.round"]
+    assert rounds and len(rounds) == on["rounds"]
+    for r in rounds:
+        up = chain(r)
+        assert up[:2] == ["kkt.refine", "partitioned.solve"], up
+        assert up[2].startswith("mehrotra.") and "mehrotra.solve" in up
+        assert up[-1] == "scenarios.solve"
+    names = collections.Counter(r.name for r in recs)
+    steps = int(on["st"].iter.max())
+    # the last step call finds every problem done and takes no step
+    assert names["mehrotra.step"] == steps + 1
+    assert names["mehrotra.predictor"] == steps
+    assert names["kkt.refine"] == on["calls"]
+    assert sum(r.reads for r in recs) == on["syncs"] > 0
+    assert all(r.read_ns >= 0 for r in recs)
+    assert names["docp.make_qp_batch"] == names["presolve.merge"] == \
+        names["presolve.violation"] == names["mehrotra.solve"] == 1
+
+
+def test_spans_are_record_functions_on_the_profiler_clock(traced_solves):
+    """Under torch.profiler each span is a record_function range of its
+    name, in the same order, starting within 100 us of the record's start
+    on the profiler's clock (log.timers.epoch_ns)."""
+    prof = traced_solves["on_profiled"]
+    recs = prof["records"]
+    assert [n for n, _ in prof["events"]] == [r.name for r in recs]
+    worst = max(abs(t - tlog.timers.epoch_ns(r.start_ns))
+                for (_, t), r in zip(prof["events"], recs))
+    assert worst < 100_000, worst
 
 
 # -- the comparisons whose JAX side runs in the background -------------------------
