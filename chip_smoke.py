@@ -177,7 +177,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      their twins on the first inputs the cases gave them; (d)
      thomas_solve_scaled (one K2 launch) against its plain twin within
      3e-16 relative at SCALED_SHAPES (DID-1000's master N = 101, n = 2 and
-     the crane's n = 6), timed as in phase 5.
+     the crane's n = 6), timed as in phase 5;
+ 24. K1's batched route (csrc/gj_interior_batch.cu): (a) the wrapper's
+     copies of both register kernels' shared-memory layouts against the
+     kernels'; (b) hold_batch_route at BATCH_CASES (s = 5, 48, 97, 98;
+     one to 1,000 interiors; f64 and f32; interiors that pivot at every
+     step, a tie and a NaN column), the checks of
+     tests/test_torch_kernels.py's card test: Minv equal to the tile
+     kernel's and the twin's to the last bit, W and Schur to the tile
+     kernel's (and within KERNEL_RTOL of the twin's), one launch in
+     LAUNCHES and LAUNCHES_BATCH; then the same at every s the route
+     takes to the batched kernel (1 to 98, three interiors); (c) at
+     BATCH_SHAPES and BATCH_SWEEP, the route the rule takes, both
+     register routes' time a launch (CUDA events around back-to-back
+     launches, median of 5) and bound, their outputs equal to the last
+     bit, and each kernel's resident interiors an SM, registers and
+     spilled bytes (the CUDA runtime's occupancy query and function
+     attributes; phase 2 prints ptxas's).
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -949,7 +965,8 @@ def show(phase, name, t, what):
 
 
 def gj_launches():
-    """K1's launch counters by route."""
+    """K1's launch counters by route ("tile" counts both register routes;
+    gj_cuda.LAUNCHES_BATCH the batched one of them)."""
     from hqp_tpu_torch.ops import gj_cuda
     return {"tile": gj_cuda.LAUNCHES, "large": gj_cuda.LAUNCHES_LARGE,
             "inv": gj_cuda.LAUNCHES_INV}
@@ -960,6 +977,7 @@ def reset_counts():
     from hqp_tpu_torch.ops import gj_cuda, thomas_cuda
     from hqp_tpu_torch.utils import sync
     gj_cuda.LAUNCHES = gj_cuda.LAUNCHES_LARGE = gj_cuda.LAUNCHES_INV = 0
+    gj_cuda.LAUNCHES_BATCH = 0
     thomas_cuda.LAUNCHES = 0
     sync.COUNT = 0
 
@@ -1376,8 +1394,9 @@ def phase_17(smi):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         its, res = st.iter.tolist(), st.result.tolist()
-        c = {"gj": gj_launches(), "thomas": thomas_cuda.LAUNCHES,
-             "syncs": sync.COUNT, "factor": seen["factor"]}
+        c = {"gj": gj_launches(), "batch": gj_cuda.LAUNCHES_BATCH,
+             "thomas": thomas_cuda.LAUNCHES, "syncs": sync.COUNT,
+             "factor": seen["factor"]}
         steps = max(its)
         print(f"[17] {tag} batch solve: {secs * 1e3:.1f} ms, "
               f"{n / secs:.1f} QP solves/s, {sum(its) / secs:.1f} IP "
@@ -1385,7 +1404,8 @@ def phase_17(smi):
               f"iterations), {res.count(0)}/{n} optimal, largest "
               f"original-row violation {float(viol.max())!r}, "
               f"{c['factor']} batched factorizations, launches K1 "
-              f"{c['gj']} K2 {c['thomas']}, host syncs {c['syncs']} "
+              f"{c['gj']} (batched route {c['batch']}) K2 {c['thomas']}, "
+              f"host syncs {c['syncs']} "
               f"({c['syncs'] / max(steps, 1):.2f} per batched IP "
               f"iteration); on {smi}")
         check(st.x.device.type == viol.device.type == DEVICE,
@@ -1415,8 +1435,11 @@ def phase_17(smi):
           "REF_SCEN")
     check(abs(vmax - ref_viol) <= 1e-9,
           f"largest original-row violation {vmax} vs {ref_viol}")
-    check(c["gj"] == {"tile": c["factor"], "large": 0, "inv": 0},
-          f"K1 launches {c['gj']} vs {c['factor']} batched factorizations")
+    way = gj_cuda.route(98, 4, torch.float64, DEVICE)
+    check(c["gj"] == {"tile": c["factor"], "large": 0, "inv": 0}
+          and c["batch"] == (c["factor"] if way == "batch" else 0),
+          f"K1 launches {c['gj']}, batched {c['batch']}, vs {c['factor']} "
+          f"batched factorizations by the {way} route")
     check(seen["gj"] == {(n * 3, 98, 98)}
           and seen["thomas"] == {(n, 4, 2, 2)} and c["thomas"] > 0,
           f"kernel shapes {seen} (K2 launches {c['thomas']})")
@@ -1453,7 +1476,7 @@ def phase_17(smi):
     for key, t, err, what in (
             ("gj", time_gj(M, B, "gj_interior_kernel"),
              float((out[0] - ref[0]).abs().max()),
-             f"K1 register kernel, P={M.shape[0]}, s={M.shape[-1]}, "
+             f"K1 {way} route, P={M.shape[0]}, s={M.shape[-1]}, "
              f"b={B.shape[-1]} (the scenario batch's interiors)"),
             ("thomas", time_thomas_batch(D, U, r),
              float((x - xr).abs().max()),
@@ -2364,7 +2387,9 @@ def phase_22(smi):
             gj_cuda.interior_factor_plain(M, B)
         rows = {}
         t = time_gj(M, B, "gj_interior_kernel")
-        show(22, "gj", t, f"f64, K1 register kernel, P={M.shape[0]}, "
+        show(22, "gj", t, f"f64, K1 "
+             f"{gj_cuda.route(M.shape[-1], B.shape[-1], M.dtype, M.device)}"
+             f" route, P={M.shape[0]}, "
              f"s={M.shape[-1]}, b={B.shape[-1]} (SpSCdist DID-1000's "
              f"interiors at one rank), on {smi}")
         rows["gj"] = (M.shape, launches["gj"]["tile"],
@@ -2544,6 +2569,152 @@ def phase_23(smi):
     return rows
 
 
+#: the interior shapes phase 24 times both register routes of K1 at (P,
+#: s, b = 4, f64): the scenario batch's (B = 16,384 and 4,096), the
+#: 256-scenario batch's, DID-1000's, SpSCdist DID-1000's at one rank and
+#: one interior; then batches of one to four waves at s = 98
+BATCH_SHAPES = [(49152, 98), (12288, 98), (768, 98), (100, 48), (50, 98),
+                (1, 98)]
+BATCH_SWEEP = [132, 264, 396, 528]
+#: the card cases of the batched route (tests/test_torch_kernels.py
+#: holds the same through hold_batch_route): sizes (97 and 98: one and two
+#: rows past the register tile) and batches
+BATCH_CASES = [(s, nb) for s in (5, 48, 97, 98) for nb in (1, 264, 1000)]
+
+
+def same(a, b):
+    """Equal to the last bit, NaN where the other is NaN."""
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def batch_inputs(P, s, b, dtype, seed, device="cuda"):
+    """Interiors that pivot at every step (each a well-conditioned matrix
+    with its rows shuffled), with a tie for the first pivot in matrix 0
+    (two rows of equal |value|: the lower one must win) and, where P > 1,
+    a NaN in column 1 of the last matrix (NaN never wins)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shift = 4.0 if s < 100 else 3.0 * s ** 0.5
+    M = torch.randn(P, s, s, generator=g, dtype=dtype, device=device) + \
+        shift * torch.eye(s, dtype=dtype, device=device)
+    order = torch.rand(P, s, generator=g, device=device).argsort(dim=1)
+    M = M.gather(1, order[:, :, None].expand(-1, -1, s)).contiguous()
+    if s >= 3:
+        top = float(M[0, :, 0].abs().max()) + 1.0
+        M[0, 1, 0], M[0, s - 1, 0] = -top, top
+    if P > 1 and s >= 3:
+        M[-1, s // 2, 1] = float("nan")
+    B = torch.randn(P, s, b, generator=g, dtype=dtype, device=device)
+    return M, B
+
+
+def hold_batch_route(s, nb, dtype=torch.float64, b=4, seed=0):
+    """The batched route of K1 at one size and batch, on the card: its
+    Minv equal to the tile route's and the plain twin's to the last bit
+    (NaN where they are NaN), its W and Schur equal to the tile route's
+    (the two share their write-out) and within KERNEL_RTOL of the twin's
+    on the finite matrices, and one launch counted in LAUNCHES and in
+    LAUNCHES_BATCH."""
+    from hqp_tpu_torch.ops import gj_cuda
+    M, B = batch_inputs(nb, s, b, dtype, seed)
+    n0, nb0 = gj_cuda.LAUNCHES, gj_cuda.LAUNCHES_BATCH
+    out = gj_cuda.batch_factor(M, B)
+    check((gj_cuda.LAUNCHES - n0, gj_cuda.LAUNCHES_BATCH - nb0) == (1, 1),
+          f"batched K1 at s={s}, nb={nb}: launches counted "
+          f"{gj_cuda.LAUNCHES - n0}, batched {gj_cuda.LAUNCHES_BATCH - nb0}")
+    tile = gj_cuda.tile_factor(M, B)
+    ref = gj_cuda.interior_factor_plain(M, B)
+    torch.cuda.synchronize()
+    check(same(out[0], tile[0]) and same(out[0], ref[0]),
+          f"batched K1 at s={s}, nb={nb}: Minv not the tile kernel's and "
+          f"the twin's to the last bit")
+    fin = torch.isfinite(M).flatten(1).all(dim=1)
+    e = [rel_err(o[fin], r[fin]) for o, r in zip(out[1:], ref[1:])]
+    check(max(e) <= KERNEL_RTOL[dtype],
+          f"batched K1 at s={s}, nb={nb}: W, Schur rel err {e}")
+    check(all(same(o, t) for o, t in zip(out[1:], tile[1:])),
+          f"batched K1 at s={s}, nb={nb}: W or Schur not the tile "
+          "kernel's to the last bit")
+
+
+def phase_24(smi):
+    """K1's batched route (see the module docstring).  Returns the kernels
+    JSON's entries: one per BATCH_SHAPES and BATCH_SWEEP shape."""
+    from hqp_tpu_torch.ops import _build, gj_cuda
+    f64, f32 = torch.float64, torch.float32
+    lib = _build.library()
+    # (a) the wrapper's copies of both register kernels' layouts
+    bad = [(s, b, dt, way) for dt, sfx in ((f64, "f64"), (f32, "f32"))
+           for b in (4, 10, 12) for s in range(1, 257)
+           for way, fn, py, top in (
+               ("tile", getattr(lib, f"hqp_gj_interior_smem_{sfx}"),
+                gj_cuda.tile_smem, 256),
+               ("batch", getattr(lib, f"hqp_gj_batch_smem_{sfx}"),
+                gj_cuda.batch_smem, gj_cuda.BATCH_MAX))
+           if s <= top and fn(s, b) != py(s, b, dt)]
+    check(not bad, f"gj_cuda's shared-memory layouts disagree with the "
+          f"kernels': {bad[:5]}")
+    print("[24] gj_cuda.tile_smem and batch_smem equal the kernels' "
+          "layouts (s <= 256 and s <= 98, b = 4, 10, 12, f64 and f32)")
+    # (b) the card cases, as tests/test_torch_kernels.py holds them
+    for s, nb in BATCH_CASES:
+        for dt in (f64, f32):
+            hold_batch_route(s, nb, dt, seed=s + nb)
+            print(f"[24] batched K1 s={s} nb={nb} {str(dt)[6:]}: Minv equal "
+                  f"to the tile kernel's and the twin's, W and Schur to the "
+                  f"tile kernel's, to the last bit")
+    # ... and at every size the route takes to the batched kernel
+    for s in range(1, gj_cuda.BATCH_MAX + 1):
+        for dt in (f64, f32):
+            check(gj_cuda.route(s, 4, dt, "cuda") == "batch",
+                  f"K1 at s={s}, {dt}: not the batched route")
+            hold_batch_route(s, 3, dt, seed=1000 + s)
+    print(f"[24] batched K1 at every s from 1 to {gj_cuda.BATCH_MAX}, three "
+          f"interiors, f64 and f32: the route's, and Minv, W and Schur "
+          f"equal to the tile kernel's and Minv to the twin's, to the last "
+          f"bit")
+    # (c) both routes timed at the callers' shapes and the sweep
+    props = torch.cuda.get_device_properties(0)
+    sms = props.multi_processor_count
+    print(f"[24] {sms} SMs, opt-in shared memory "
+          f"{props.shared_memory_per_block_optin} B a block; the rule "
+          f"takes the batched route at s <= {gj_cuda.BATCH_MAX}")
+    rows = []
+    for P, s in BATCH_SHAPES + [(nb, 98) for nb in BATCH_SWEEP]:
+        b = 4
+        M, B = batch_inputs(P, s, b, f64, seed=P + s)
+        way = gj_cuda.route(s, b, f64, M.device)
+        tile, bat = gj_cuda.tile_factor(M, B), gj_cuda.batch_factor(M, B)
+        torch.cuda.synchronize()
+        check(all(same(o, t) for o, t in zip(bat, tile)),
+              f"batched K1 at [{P}, {s}, {s}]: Minv, W or Schur not the "
+              "tile kernel's to the last bit")
+        del tile, bat
+        runs = 3 if P > 10000 else 50
+        ms = {k: median_ms(fn, reps=5, runs=runs) for k, fn in (
+            ("tile", lambda: gj_cuda.tile_factor(M, B)),
+            ("batch", lambda: gj_cuda.batch_factor(M, B)))}
+        attrs = {k: gj_cuda.kernel_attrs(k, s, b, f64)
+                 for k in ("tile", "batch")}
+        bnd = gj_bound(P, s, b, f64)
+        print(f"[24] K1 [{P}, {s}, {s}] b={b} f64: rule -> {way}; ms a "
+              f"launch ({runs} back-to-back, median of 5): tile "
+              f"{ms['tile']:.4f}, batched {ms['batch']:.4f} "
+              f"({ms['tile'] / ms['batch']:.2f}x); bound {bnd[0]:.3e} ms "
+              f"({bnd[1]}): tile {100 * bnd[0] / ms['tile']:.2f}%, batched "
+              f"{100 * bnd[0] / ms['batch']:.2f}%; resident interiors an SM,"
+              f" registers, spilled bytes, threads: tile {attrs['tile']}, "
+              f"batched {attrs['batch']}; Minv, W, Schur equal; on {smi}")
+        rows.append({"shape": [P, s, s], "b": b, "route": way,
+                     "tile_ms": ms["tile"], "batch_ms": ms["batch"],
+                     "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "tile_attrs": attrs["tile"],
+                     "batch_attrs": attrs["batch"]})
+        del M, B
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     # -- 1. device and toolchain -----------------------------------------
     if not torch.cuda.is_available():
@@ -2590,7 +2761,7 @@ def main():
         launches of each route counted by this one call; returns the
         route and the largest absolute error of Minv."""
         M, B = gj_inputs(P, s, b, dt, seed=seed, swap=swap)
-        before = gj_launches()
+        before, batch0 = gj_launches(), gj_cuda.LAUNCHES_BATCH
         out = gj_cuda.interior_factor(M, B)
         after = gj_launches()
         ref = gj_cuda.interior_factor_plain(M, B)
@@ -2614,13 +2785,18 @@ def main():
         check(max(e) <= tol[dt], f"K1 disagrees with its twin ({e})")
         check(resid <= 100 * tol[dt], f"K1 inverse residual {resid}")
         counted = {k: after[k] - before[k] for k in after}
-        check(counted == {k: int(k == way) for k in counted},
-              f"K1 at s={s}: route {way} but launches {counted}")
+        # ("tile" counts both register routes)
+        reg = "tile" if way == "batch" else way
+        check(counted == {k: int(k == reg) for k in counted}
+              and gj_cuda.LAUNCHES_BATCH - batch0 == int(way == "batch"),
+              f"K1 at s={s}: route {way} but launches {counted}, batched "
+              f"{gj_cuda.LAUNCHES_BATCH - batch0}")
         return way, emax
 
     for i, (P, s, b, dt, swap) in enumerate(cases):
         way, err = gj_case(3, P, s, b, dt, swap, seed=i)
-        check(way == "tile", f"K1 at s={s} left the register kernel")
+        want = "batch" if s <= gj_cuda.BATCH_MAX else "tile"
+        check(way == want, f"K1 at s={s}: route {way}, not {want}")
         if (P, s, dt) == (100, 48, torch.float64):
             errs["gj"] = err
 
@@ -2731,11 +2907,14 @@ def main():
           "K1 above s = 512 does not take torch.linalg.inv")
     for b in (10, 12):
         ways = [gj_cuda.route(s, b, f64, "cuda") for s in range(1, 513)]
-        top = ways.count("tile")
-        check(ways == ["tile"] * top + ["large"] * (512 - top),
+        nbat, top = ways.count("batch"), ways.count("batch") + ways.count(
+            "tile")
+        check(nbat == gj_cuda.BATCH_MAX and ways == ["batch"] * nbat
+              + ["tile"] * (top - nbat) + ["large"] * (512 - top),
               f"K1's routes at b={b} are not one size rule")
-        print(f"[8] K1 routes at b={b}, f64: register kernel for s <= {top}, "
-              f"large kernel for {top} < s <= 512, torch.linalg.inv above")
+        print(f"[8] K1 routes at b={b}, f64: batched register kernel for "
+              f"s <= {nbat}, register kernel for {nbat} < s <= {top}, large "
+              f"kernel for {top} < s <= 512, torch.linalg.inv above")
 
     # -- 9. times at this slice's shapes -------------------------------------
     optin = gj_cuda.smem_limit("cuda")
@@ -2828,6 +3007,10 @@ def main():
     scaled = phase_23(smi)
     clock(23)
 
+    # -- 24. K1's batched route ------------------------------------------------
+    batch24 = phase_24(smi)
+    clock(24)
+
     def row(key, name, replaces):
         t = times[key]
         return {"name": name, "route": "cuda",
@@ -2842,7 +3025,8 @@ def main():
     # launches in one warm batched solve
     # "sharded": at SpSCdist DID-1000's shapes, with its launches there
     kernels = [dict(row("gj", "gj_interior", "hqp_tpu/ops/gj_pallas.py:138"),
-                    scenarios=batch["gj"], sharded=sharded["gj"]),
+                    scenarios=batch["gj"], sharded=sharded["gj"],
+                    batch=batch24),
                dict(row("gj_large", "gj_interior_large",
                         "hqp_tpu/ops/gj_pallas.py:138"), cluster=cluster),
                dict(row("thomas", "thomas",

@@ -12,18 +12,20 @@
 // then a difference, never fused), so the two agree to the last bit
 // before W and Schur.
 //
-// What bounds it on an H100: latency, not bytes or FLOPs.  The DID-1000
-// factor has P = 100 matrices of s = 48 (4.0 MB in f64 in and out, 1.2 us
-// at 3.35 TB/s; 0.24 MFLOP each), so the work is one wave of 100 blocks on
-// 132 SMs and the time is the s dependent elimination steps.  Tensor cores
-// do not pay: one matrix is a quarter MFLOP, Hopper has no f64 wgmma, and
-// mma.sync's f64 tiles would not shorten the chain of s steps.
+// The route for 98 < s (gj_interior_batch.cu, two matrices an SM, takes
+// s <= 98; ops/gj_cuda.py::route_rule): the crane's interiors, P = 100 of
+// s = 124 (12.6 MB in f64 in and out, 3.8 us at 3.35 TB/s; 1.9 MFLOP
+// each).  What bounds it on an H100: latency, not bytes or FLOPs: the
+// work is one wave of 100 blocks on 132 SMs and the time is the s
+// dependent elimination steps.  Tensor cores do not pay: one matrix is a
+// couple of MFLOP, Hopper has no f64 wgmma, and mma.sync's f64 tiles
+// would not shorten the chain of s steps.
 //
 // Design: one thread block per matrix; one barrier per step.
 // - The matrix lives in registers during the elimination: thread (row
 //   group rg, column lane cl) owns rows rg + 16 r and columns cl + 16 c
-//   (N x N entries, N = ceil(s / 16), a template parameter so that the
-//   loops unroll and need no division).  Shared memory carries only what
+//   (N x N entries, N = 8, 12 or 16, the first >= ceil(s / 16), a
+//   template parameter so that the loops unroll and need no division).  Shared memory carries only what
 //   a step exchanges: the pivot row, column k, the pivot candidates.
 // - No row swap.  Rows stay where they were loaded; each thread keeps the
 //   logical positions of its rows, and the output is read out through
@@ -47,7 +49,9 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <type_traits>
 
+#include "gj_common.cuh"
 #include "staging.cuh"
 
 namespace {
@@ -56,20 +60,6 @@ constexpr int kThreads = 256;
 constexpr int kCols = 16;                   // column lanes
 constexpr int kRows = kThreads / kCols;     // row groups
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double sub_rn(double a, double b) {
-  return __dsub_rn(a, b);
-}
-__device__ __forceinline__ float sub_rn(float a, float b) {
-  return __fsub_rn(a, b);
-}
 
 struct Layout {
   size_t a, B, col, row, W, cand, pos, perm, total;
@@ -121,7 +111,7 @@ __device__ __forceinline__ Cand<T> shfl(const Cand<T>& c, int lane) {
           __shfl_sync(kFull, c.q, lane), __shfl_sync(kFull, c.x, lane)};
 }
 
-// N: rows and columns a thread owns, ceil(s / 16)
+// N: rows and columns a thread owns, at least ceil(s / 16)
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads, 1)
 gj_interior_kernel(const T* __restrict__ MII, const T* __restrict__ MIB,
@@ -263,60 +253,48 @@ gj_interior_kernel(const T* __restrict__ MII, const T* __restrict__ MIB,
   }
   __syncthreads();
 
-  // Minv[i][j] = a[perm[i]][pos[j]];  W = Minv MIB;  Schur = MIB' W
-  const int* fpos = pos;
-  const int* fperm = perm;
-  T* Mo = Minv + m * s * s;
-  for (int i = rg; i < s; i += kRows) {
-    const T* ar = a + fperm[i] * s;
-    for (int j = cl; j < s; j += kCols) Mo[(long)i * s + j] = ar[fpos[j]];
+  write_out<T, kThreads>(a, Bs, Ws, pos, perm, Minv + m * s * s,
+                         W + m * s * b, Schur + m * b * b, s, b, rg, kRows,
+                         cl, kCols, tid);
+}
+
+// Raise the kernel's dynamic shared memory to the opt-in limit, once,
+// where the tile needs more than the default 48 KB.
+template <typename T, int N>
+cudaError_t raise_smem(size_t bytes) {
+  static bool raised = false;
+  if (bytes > 48 * 1024 && !raised) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gj_interior_kernel<T, N>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, hqp::smem_optin());
+    if (err != cudaSuccess) return err;
+    raised = true;
   }
-  T* Wo = W + m * s * b;
-  for (int e = tid; e < s * b; e += kThreads) {
-    const int i = e / b, c = e - i * b;
-    const T* ar = a + fperm[i] * s;
-    T acc[4] = {T(0), T(0), T(0), T(0)};  // 4 chains in flight
-    int q = 0;
-    for (; q + 4 <= s; q += 4)
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        acc[u] += ar[q + u] * Bs[fperm[q + u] * b + c];
-    for (; q < s; ++q) acc[0] += ar[q] * Bs[fperm[q] * b + c];
-    const T w = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-    Ws[e] = w;
-    Wo[e] = w;
-  }
-  __syncthreads();
-  T* So = Schur + m * b * b;
-  for (int e = tid; e < b * b; e += kThreads) {
-    const int c1 = e / b, c2 = e - c1 * b;
-    T acc[4] = {T(0), T(0), T(0), T(0)};
-    int i = 0;
-    for (; i + 4 <= s; i += 4)
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        acc[u] += Bs[(i + u) * b + c1] * Ws[(i + u) * b + c2];
-    for (; i < s; ++i) acc[0] += Bs[i * b + c1] * Ws[i * b + c2];
-    So[e] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-  }
+  return cudaSuccess;
 }
 
 template <typename T, int N>
 int launch_n(const T* MII, const T* MIB, T* Minv, T* W, T* Schur, int nb,
              int s, int b, size_t bytes, cudaStream_t stream) {
-  if (bytes > 48 * 1024) {
-    static bool raised = false;
-    if (!raised) {
-      cudaError_t err = cudaFuncSetAttribute(
-          gj_interior_kernel<T, N>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, hqp::smem_optin());
-      if (err != cudaSuccess) return (int)err;
-      raised = true;
-    }
-  }
+  cudaError_t err = raise_smem<T, N>(bytes);
+  if (err != cudaSuccess) return (int)err;
   gj_interior_kernel<T, N><<<nb, kThreads, bytes, stream>>>(
       MII, MIB, Minv, W, Schur, s, b);
   return (int)cudaGetLastError();
+}
+
+// Calls f(std::integral_constant<int, N>) for the N whose tile holds s;
+// cudaErrorInvalidValue above s = 256, more than any tile holds.  The
+// route takes s > 98 here, so the smallest tile is N = 8 (s <= 128); a
+// smaller s, launched directly, runs in it padded.
+template <typename F>
+int by_tile(int s, F&& f) {
+  const int n = (s + kCols - 1) / kCols;
+#define HQP_GJ_N(N_) \
+  if (n <= N_) return f(std::integral_constant<int, N_>{});
+  HQP_GJ_N(8) HQP_GJ_N(12) HQP_GJ_N(16)
+#undef HQP_GJ_N
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -324,14 +302,31 @@ int launch(const T* MII, const T* MIB, T* Minv, T* W, T* Schur, int nb,
            int s, int b, cudaStream_t stream) {
   if (nb <= 0 || s <= 0) return (int)cudaSuccess;
   const size_t bytes = layout<T>(s, b).total;
-  const int n = (s + kCols - 1) / kCols;
-#define HQP_GJ_N(N_)                                                       \
-  if (n <= N_)                                                             \
-    return launch_n<T, N_>(MII, MIB, Minv, W, Schur, nb, s, b, bytes, stream);
-  HQP_GJ_N(1) HQP_GJ_N(2) HQP_GJ_N(3) HQP_GJ_N(4) HQP_GJ_N(6) HQP_GJ_N(8)
-  HQP_GJ_N(12) HQP_GJ_N(16)
-#undef HQP_GJ_N
-  return (int)cudaErrorInvalidValue;  // s > 256: more than any tile holds
+  return by_tile(s, [&](auto N) {
+    return launch_n<T, decltype(N)::value>(MII, MIB, Minv, W, Schur, nb, s,
+                                           b, bytes, stream);
+  });
+}
+
+// The kernel size s takes: blocks resident on one SM, registers and local
+// (spilled) bytes a thread, threads a block, into out[0..3].
+template <typename T>
+int attrs(int s, int b, int* out) {
+  const size_t bytes = layout<T>(s, b).total;
+  return by_tile(s, [&](auto N) {
+    constexpr int n = decltype(N)::value;
+    cudaError_t err = raise_smem<T, n>(bytes);
+    cudaFuncAttributes fa{};
+    if (err == cudaSuccess)
+      err = cudaFuncGetAttributes(&fa, gj_interior_kernel<T, n>);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          out, gj_interior_kernel<T, n>, kThreads, bytes);
+    out[1] = fa.numRegs;
+    out[2] = (int)fa.localSizeBytes;
+    out[3] = kThreads;
+    return (int)err;
+  });
 }
 
 }  // namespace
@@ -359,6 +354,14 @@ int hqp_gj_interior_f32(const float* MII, const float* MIB, float* Minv,
                         void* stream) {
   return launch<float>(MII, MIB, Minv, W, Schur, nb, s, b,
                        (cudaStream_t)stream);
+}
+
+// Occupancy and resources of the kernel size s takes (see attrs).
+int hqp_gj_interior_attrs_f64(int s, int b, int* out) {
+  return attrs<double>(s, b, out);
+}
+int hqp_gj_interior_attrs_f32(int s, int b, int* out) {
+  return attrs<float>(s, b, out);
 }
 
 }  // extern "C"

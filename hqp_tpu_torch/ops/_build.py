@@ -37,6 +37,14 @@ SIGNATURES = {
     "hqp_gj_interior_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hqp_gj_interior_smem_f64": [_I, _I],
     "hqp_gj_interior_smem_f32": [_I, _I],
+    "hqp_gj_interior_attrs_f64": [_I, _I, _P],
+    "hqp_gj_interior_attrs_f32": [_I, _I, _P],
+    "hqp_gj_batch_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "hqp_gj_batch_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "hqp_gj_batch_smem_f64": [_I, _I],
+    "hqp_gj_batch_smem_f32": [_I, _I],
+    "hqp_gj_batch_attrs_f64": [_I, _I, _P],
+    "hqp_gj_batch_attrs_f32": [_I, _I, _P],
     "hqp_gj_large_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hqp_gj_large_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hqp_gj_large_smem_f64": [_I, _I, _I],
@@ -48,6 +56,8 @@ SIGNATURES = {
 }
 _RESTYPES = {"hqp_gj_interior_smem_f64": ctypes.c_size_t,
              "hqp_gj_interior_smem_f32": ctypes.c_size_t,
+             "hqp_gj_batch_smem_f64": ctypes.c_size_t,
+             "hqp_gj_batch_smem_f32": ctypes.c_size_t,
              "hqp_gj_large_smem_f64": ctypes.c_size_t,
              "hqp_gj_large_smem_f32": ctypes.c_size_t}
 

@@ -1,9 +1,11 @@
 """Batched pivoted Gauss-Jordan interior inverse: CUDA kernel K1 + twin.
 
 Port of the Pallas TPU kernel ``hqp_tpu/ops/gj_pallas.py::interior_factor``
-(kernel sources: ``csrc/gj_interior.cu`` and, for interiors too large for
-its tile, the cluster kernel ``csrc/gj_interior_large.cu``; :func:`route`
-picks one by size, and :func:`cluster_size` the cluster kernel's width).
+(kernel sources: ``csrc/gj_interior_batch.cu``, two matrices an SM, for
+s <= 98; ``csrc/gj_interior.cu``, one matrix an SM, above that; for
+interiors too large for its tile, the cluster kernel
+``csrc/gj_interior_large.cu``; :func:`route` picks one by size, and
+:func:`cluster_size` the cluster kernel's width).
 Per matrix of a batch it returns ``Minv = MII^-1``, ``W = Minv MIB`` and
 ``Schur = MIB' W``.
 
@@ -20,6 +22,8 @@ TPU kernel, the port keeps the input dtype: float64 or float32.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from hqp_tpu_torch.ops import _build
@@ -34,12 +38,26 @@ CLUSTERS = (16, 8, 4)
 #: threads may hold in registers (csrc/gj_interior_large.cu)
 LARGE_WARPS = 16
 LARGE_REG_BYTES = 256
+#: the batched route's tiles (csrc/gj_interior_batch.cu, ``by_tile``):
+#: the largest interior each holds, the register rows and columns a
+#: thread holds, and its warps; the route's largest interior; and the
+#: matrices it keeps resident on one SM.  (chip_smoke.py phase 24 times
+#: both register routes: the batched one is the faster at every batch it
+#: times, one interior to hundreds of waves.)
+BATCH_TILES = ((48, 3, 6, 4), (98, 6, 13, 4))
+BATCH_MAX = BATCH_TILES[-1][0]
+BATCH_RESIDENT = 2
+#: shared memory the card reserves for each resident block (bytes): an
+#: SM holds the opt-in limit of one block plus this
+BLOCK_RESERVED = 1024
 #: launches since import, one counter per route (the main path adds one
-#: per factorization): the register kernel, the large kernel, and the
-#: torch.linalg.inv calls above MAX_LARGE
+#: per factorization): the register kernels (both routes), the large
+#: kernel, and the torch.linalg.inv calls above MAX_LARGE; and, of
+#: LAUNCHES, those of the batched route
 LAUNCHES = 0
 LAUNCHES_LARGE = 0
 LAUNCHES_INV = 0
+LAUNCHES_BATCH = 0
 
 
 def interior_factor_plain(MII, MIB):
@@ -83,6 +101,38 @@ def interior_factor_plain(MII, MIB):
 
 def _r16(n):
     return (n + 15) & ~15
+
+
+def _el(dtype):
+    return torch.finfo(dtype).bits // 8
+
+
+def tile_smem(s, b, dtype) -> int:
+    """Bytes of shared memory one block of the tile route takes for an
+    interior of size s with b boundary columns: the kernel's ``layout``
+    (csrc/gj_interior.cu), which chip_smoke.py holds this copy against.
+    The staged matrix and MIB (16 bytes of slack each), column k twice,
+    the 8 warps' candidate rows twice, W, the 8 warps' candidates twice
+    (24 bytes each in float64, 16 in float32), the row maps."""
+    el = _el(dtype)
+    return (_r16(s * s * el + 16) + _r16(s * b * el + 16) + _r16(2 * s * el)
+            + _r16(16 * s * el) + _r16(s * b * el)
+            + _r16(16 * (24 if el == 8 else 16)) + 2 * _r16(4 * s))
+
+
+def batch_smem(s, b, dtype) -> int:
+    """Bytes of shared memory one block of the batched route takes for an
+    interior of size s <= BATCH_MAX: the kernel's ``blayout``
+    (csrc/gj_interior_batch.cu), which chip_smoke.py holds this copy
+    against.  The staged matrix and MIB, column k twice over the rows
+    of the register tile and the 16 past it (rp), the pivot twice
+    (1/pivot and its row, padded to two elements), W, the logical
+    positions over rp rows and the logical -> row map."""
+    el = _el(dtype)
+    rp = 16 * next(t for t in BATCH_TILES if s <= t[0])[1] + 16
+    return (_r16(s * s * el + 16) + _r16(s * b * el + 16)
+            + _r16(2 * rp * el) + _r16(4 * el) + _r16(s * b * el)
+            + _r16(4 * rp) + _r16(4 * s))
 
 
 def large_smem(s, b, dtype, C) -> int:
@@ -132,25 +182,42 @@ def smem_limit(device) -> int:
         device).shared_memory_per_block_optin
 
 
-def route(s, b, dtype, device) -> str:
-    """Which route a CUDA batch of interiors of size s with b coupling
-    columns takes, by an explicit size rule:
+def batch_fits(s, b, dtype, limit) -> bool:
+    """Do BATCH_RESIDENT interiors of size s with b boundary columns fit
+    one SM in the batched route?  Its tiles hold s <= BATCH_MAX in
+    registers at two blocks an SM, and the blocks' shared memory, with
+    what the card reserves for each, must fit the SM's: the opt-in
+    ``limit`` of one block plus BLOCK_RESERVED."""
+    return s <= BATCH_MAX and BATCH_RESIDENT * (
+        batch_smem(s, b, dtype) + BLOCK_RESERVED) <= limit + BLOCK_RESERVED
 
-    - ``"tile"``: the register kernel (``csrc/gj_interior.cu``) wherever
-      its tile fits one block's opt-in shared memory (on an H100, s up to
-      151 in f64 with b = 10);
+
+def route_rule(s, b, dtype, limit) -> str:
+    """Which route a CUDA batch of interiors of size s with b coupling
+    columns takes on a card whose blocks may opt in to ``limit`` bytes of
+    shared memory (232448 on an H100), by an explicit size rule:
+
+    - ``"batch"``: the batched register kernel
+      (``csrc/gj_interior_batch.cu``) where two interiors fit one SM
+      (:func:`batch_fits`: s <= 98, the scenario batch's and DID-1000's);
+    - ``"tile"``: the register kernel (``csrc/gj_interior.cu``) above
+      that, wherever its tile fits one block's shared memory (on an H100,
+      s up to 151 in f64 with b = 10: the crane's s = 124);
     - ``"large"``: the cluster kernel (``csrc/gj_interior_large.cu``)
       above that, up to ``MAX_LARGE`` = 512, the TPU kernel's own limit
       (hqp_tpu/ops/gj_pallas.py:52-54);
     - ``"inv"``: ``torch.linalg.inv`` above 512, as the JAX package
       inverts outside its kernel (hqp_tpu/qp/kkt_partitioned.py:607)."""
-    limit = smem_limit(device)
-    lib = _build.library()
-    smem = lib.hqp_gj_interior_smem_f64 if dtype == torch.float64 else \
-        lib.hqp_gj_interior_smem_f32
-    if smem(s, b) <= limit:
+    if batch_fits(s, b, dtype, limit):
+        return "batch"
+    if tile_smem(s, b, dtype) <= limit:
         return "tile"
     return "large" if s <= MAX_LARGE else "inv"
+
+
+def route(s, b, dtype, device) -> str:
+    """:func:`route_rule` with the opt-in shared memory of ``device``."""
+    return route_rule(s, b, dtype, smem_limit(device))
 
 
 def _check(MII, MIB):
@@ -195,7 +262,7 @@ def interior_factor(MII, MIB):
     CPU tensors: :func:`interior_factor_plain`.  CUDA tensors: one launch
     of the route :func:`route` names over the flattened batch, or an
     exception -- never a fallback from one route to another."""
-    global LAUNCHES, LAUNCHES_INV
+    global LAUNCHES_INV
     if MII.device.type == "cpu" and MIB.device.type == "cpu":
         return interior_factor_plain(MII, MIB)
     s, b = _check(MII, MIB)
@@ -208,11 +275,52 @@ def interior_factor(MII, MIB):
     if way == "large":
         return large_factor(MII, MIB, cluster_size(s, b, MII.dtype,
                                                    smem_limit(MII.device)))
+    return batch_factor(MII, MIB) if way == "batch" else \
+        tile_factor(MII, MIB)
+
+
+def tile_factor(MII, MIB):
+    """The tile route: one launch of the register kernel, a block and an
+    SM a matrix, on CUDA tensors whose tile fits (:func:`tile_smem`).
+    :func:`interior_factor` takes it by :func:`route` above BATCH_MAX;
+    chip_smoke.py also runs it at s <= BATCH_MAX, against the batched
+    route.  Raises where it does not fit."""
+    global LAUNCHES
+    _check(MII, MIB)
     lib = _build.library()
     out = _launch(lib.hqp_gj_interior_f64 if MII.dtype == torch.float64
                   else lib.hqp_gj_interior_f32, MII, MIB)
     LAUNCHES += 1
     return out
+
+
+def batch_factor(MII, MIB):
+    """The batched route: one launch of the batched register kernel, two
+    matrices an SM, on CUDA tensors with s <= BATCH_MAX, at any batch.
+    :func:`interior_factor` takes it by :func:`route`; chip_smoke.py and
+    the card tests also launch it directly.  Counts in LAUNCHES and
+    LAUNCHES_BATCH.  Raises where s does not fit."""
+    global LAUNCHES, LAUNCHES_BATCH
+    _check(MII, MIB)
+    lib = _build.library()
+    out = _launch(lib.hqp_gj_batch_f64 if MII.dtype == torch.float64
+                  else lib.hqp_gj_batch_f32, MII, MIB)
+    LAUNCHES += 1
+    LAUNCHES_BATCH += 1
+    return out
+
+
+def kernel_attrs(way, s, b, dtype):
+    """(interiors resident on one SM, registers a thread, spilled bytes a
+    thread, threads a block) of the register kernel route ``way``
+    ("tile" or "batch") takes at size s, from the CUDA runtime's
+    occupancy query and function attributes on the current device."""
+    lib = _build.library()
+    fn = getattr(lib, f"hqp_gj_{'interior' if way == 'tile' else way}"
+                 f"_attrs_{'f64' if dtype == torch.float64 else 'f32'}")
+    out = (ctypes.c_int * 4)()
+    _build.check(fn(s, b, ctypes.addressof(out)), f"{fn.__name__}")
+    return tuple(out)
 
 
 def large_factor(MII, MIB, cluster):

@@ -152,6 +152,73 @@ def test_gj_cluster_size_rule(b, dtype):
         gj_cuda.cluster_size(512, b, dtype, 16 * 1024)
 
 
+@pytest.mark.parametrize("s,b,dtype,want", [
+    (98, 4, torch.float64, "batch"),    # the scenario batch, scenarios256
+    (48, 4, torch.float64, "batch"),    # DID-1000
+    (98, 4, torch.float32, "batch"),
+    (1, 4, torch.float64, "batch"),
+    (99, 4, torch.float64, "tile"),     # past the batched route's tiles
+    (98, 60, torch.float64, "tile"),    # two of b = 60 do not fit an SM
+    (124, 12, torch.float64, "tile"),   # the crane
+    (151, 10, torch.float64, "tile"),   # the tile route's top
+    (152, 10, torch.float64, "large"),
+    (245, 10, torch.float64, "large"),  # CranePar
+    (513, 10, torch.float64, "inv"),
+])
+def test_gj_route_rule_at_callers(s, b, dtype, want):
+    """K1's route at each caller's shape on an H100: the batched route
+    wherever two interiors fit one SM (SpSCdist's [50, 98, 98] too, and at
+    any batch), the tile route above, then the large route and
+    torch.linalg.inv."""
+    assert gj_cuda.route_rule(s, b, dtype, H100_SMEM_OPTIN) == want
+
+
+@pytest.mark.parametrize("b,dtype", [(4, torch.float64), (10, torch.float64),
+                                     (12, torch.float64),
+                                     (4, torch.float32)])
+def test_gj_route_rule_is_one_size_rule(b, dtype):
+    """Over every size the rule is one size rule: the batched route for s
+    <= BATCH_MAX, else the tile route up to the size its block holds, the
+    large route to 512, torch.linalg.inv above; two batched blocks always
+    fit the SM's shared memory where the rule takes them."""
+    lim = H100_SMEM_OPTIN
+    top = max(s for s in range(1, 513) if gj_cuda.tile_smem(s, b, dtype)
+              <= lim)
+    ways = [gj_cuda.route_rule(s, b, dtype, lim) for s in range(1, 514)]
+    nbat = gj_cuda.BATCH_MAX
+    assert ways == (["batch"] * nbat + ["tile"] * (top - nbat)
+                    + ["large"] * (512 - top) + ["inv"])
+    assert all(2 * (gj_cuda.batch_smem(s, b, dtype) + 1024) <= lim + 1024
+               for s in range(1, nbat + 1))
+
+
+def test_gj_register_layouts():
+    """The wrapper's copies of the register kernels' shared-memory layouts
+    (chip_smoke.py phase 24 holds both against the kernels'): the tile
+    kernel's block holds s <= 151 at b = 10 in f64 on an H100, as phase 8
+    found on the card, and takes 29 KB at s = 48 and 147 KB at s = 124
+    (b = 4; its source says so); the batched kernel's block holds the
+    staged matrix and MIB, W, two columns over the rows of its register
+    tile and the 16 past it (64 or 112 rows), the logical positions over
+    as many rows and the logical -> row map: 85,808 bytes at s = 98, b = 4
+    in f64, about half that in f32."""
+    f64, f32 = torch.float64, torch.float32
+    assert gj_cuda.tile_smem(151, 10, f64) <= H100_SMEM_OPTIN \
+        < gj_cuda.tile_smem(152, 10, f64)
+    assert round(gj_cuda.tile_smem(48, 4, f64) / 1024) == 29
+    assert round(gj_cuda.tile_smem(124, 4, f64) / 1024) == 147
+    for s in range(1, gj_cuda.BATCH_MAX + 1):
+        rp = 64 if s <= 48 else 112
+        for b, dt in ((4, f64), (12, f64), (4, f32)):
+            el = torch.finfo(dt).bits // 8
+            need = (s * s + 2 * s * b + 2 * rp) * el + 4 * (rp + s)
+            assert need < gj_cuda.batch_smem(s, b, dt) <= need + 160
+    assert gj_cuda.batch_smem(98, 4, f64) == 85808
+    assert gj_cuda.batch_smem(98, 4, f32) == 43344
+    assert gj_cuda.batch_fits(98, 4, f64, H100_SMEM_OPTIN)
+    assert not gj_cuda.batch_fits(99, 4, f64, H100_SMEM_OPTIN)
+
+
 def test_gj_plain_batch_axis_and_nan_pivot():
     """A leading scenario axis flattens into the batch; a NaN column
     never wins the pivot search (the row index stays valid)."""
@@ -1053,6 +1120,29 @@ def test_batched_qp_draws_and_checksum():
     assert {k: float(noise[k]) for k in entries} == entries
     assert chip_smoke.SCEN_CHECKSUM == SCEN_CHECKSUM
     assert abs(float(noise.std()) - 1e-3) < 2e-5
+
+
+@pytest.fixture
+def card():
+    """Skips a test where there is no CUDA card (decided here, never while
+    the module is imported)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card on this host")
+    return torch.device("cuda")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("s,nb", chip_smoke.BATCH_CASES)
+def test_gj_batch_route_on_card(card, s, nb):
+    """K1's batched route on the card at s = 5, 48, 97, 98 and one to
+    1,000 interiors, on interiors that pivot at every step, with a tie and
+    a NaN column: Minv equal to the tile kernel's and the twin's to the
+    last bit, W and Schur equal to the tile kernel's and within
+    KERNEL_RTOL of the twin's, one launch in LAUNCHES and in
+    LAUNCHES_BATCH.  This file imports the JAX package, which is not run
+    on the card's host: chip_smoke.py phase 24 runs the same check there."""
+    for dt in (torch.float64, torch.float32):
+        chip_smoke.hold_batch_route(s, nb, dt, seed=s + nb)
 
 
 def test_batched_qp_refuses_hot_start():
