@@ -17,6 +17,11 @@ one ``device``, the card unless the constructor is given another;
 
 Assembled QP form: :class:`hqp_tpu_torch.qp.program.StageQP`, with the
 per-stage variable v_k = (x_k, u_k) and u padded (fixed to 0) at stage K.
+
+The values and the derivatives are the spans ``docp.eval_vals`` and
+``docp.eval_derivs`` (:mod:`hqp_tpu_torch.utils.log`), each batched build
+the span ``docp.make_qp_batch``; :data:`QP_BUILDS` counts the batched
+builds.
 """
 
 from __future__ import annotations
@@ -28,6 +33,10 @@ import torch
 
 from hqp_tpu_torch.qp.program import StageQP
 from hqp_tpu_torch.utils import log
+
+#: calls of :meth:`Docp.make_qp_batch` since import (reset freely by
+#: callers)
+QP_BUILDS = 0
 
 
 def resolve_device(device) -> torch.device:
@@ -194,6 +203,7 @@ class Docp:
     def _ks(self):
         return torch.arange(self.K, device=self.device)
 
+    @log.spanned("docp.eval_vals")
     def eval_vals(self, v):
         """Objective, dynamics residual and constraint values
         (Hqp_Docp::update_fbd, hqp/Hqp_Docp.C:831-892)."""
@@ -208,6 +218,7 @@ class Docp:
             cvals = torch.cat([out[2], fin[1][None]], dim=0)
         return out[1].sum() + fin[0], b, cvals
 
+    @log.spanned("docp.eval_derivs")
     def eval_derivs(self, v):
         """A = [fx fu], objective gradient and C = dc/dv in one vectorized
         forward-mode pass per stage (Hqp_Docp::update/update_grds,
@@ -256,6 +267,8 @@ class Docp:
         """:meth:`make_qp` over a batch of iterates v [B, K1, nv] (and
         Hessians Q [B, K1, nv, nv]) by ``torch.func.vmap``: objectives [B]
         and one StageQP whose every field has the leading batch axis."""
+        global QP_BUILDS
+        QP_BUILDS += 1
         if Q is None:
             return torch.func.vmap(lambda vi: self.make_qp(vi))(v)
         return torch.func.vmap(self.make_qp)(v, Q)

@@ -17,6 +17,8 @@ integrator -> update is one differentiable function and ``jacfwd``
 composes its Jacobians.  The sample-period index ``kk`` is a tensor that
 the stage ``vmap`` batches, so tables indexed by it go through
 :func:`at` (a gather), never through Python indexing or branches.
+:data:`INTEGRATIONS` counts the integrator's calls: under ``vmap`` one
+call integrates one sample period of every stage of a horizon.
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ import torch
 
 from hqp_tpu_torch.docp.program import Docp
 from hqp_tpu_torch.omu.integrators import RK4, Integrator
+
+#: calls of the integrator by :meth:`OmuProgram._period` since import
+#: (reset freely by callers)
+INTEGRATIONS = 0
 
 
 def at(table, k):
@@ -106,8 +112,10 @@ class OmuProgram(Docp):
         return v
 
     def _period(self, kk, t0k, t1k, x, u):
+        global INTEGRATIONS
         x0 = self.consistic(kk, t0k, x, u)
         if self.has_continuous():
+            INTEGRATIONS += 1
             xf = self.integrator.solve(self.continuous, kk, t0k, t1k, x0, u)
         else:
             xf = x0

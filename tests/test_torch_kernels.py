@@ -2170,6 +2170,148 @@ def test_spans_are_record_functions_on_the_profiler_clock(traced_solves):
     assert worst < 100_000, worst
 
 
+# -- the crane as a batch of stage QPs (the benchmark's crane_scen) ----------
+
+from hqp_tpu_torch.docp import program as tdocp  # noqa: E402
+from hqp_tpu_torch.omu import program as tomu  # noqa: E402
+from portbench.core import check as bcheck  # noqa: E402
+from portbench.core import spec as bspec  # noqa: E402
+from portbench.core import system as bsystem  # noqa: E402
+from portbench.core import traffic as btraffic  # noqa: E402
+from portbench.reference import crane as rcrane  # noqa: E402
+
+#: the seed of the crane batch's draws
+CRANE_SEED = 2 ** 33 + 5
+
+
+def _crane_system():
+    """The benchmark's crane_scen configuration at K = 10 and B = 3 as the
+    benchmark builds it (portbench.core.system.System) on the CPU, and one
+    batch of its draws."""
+    cfg = dict(bspec.load_cell("crane_scen.montecarlo").config, K=10,
+               kmax=10, batch=3)
+    sut = bsystem.System(cfg, CPU, ref=rcrane)
+    draws = btraffic.Draws(rcrane.base_iterate(cfg, CPU), sut.batch, 1e-3,
+                           CRANE_SEED, CPU)
+    return sut, draws.next()
+
+
+@pytest.fixture(scope="module")
+def crane_solves():
+    """One crane batch solved as the benchmark solves it (presolve tau
+    0.02, Mehrotra(PartitionedKKT(L=20), eps=1e-9, max_iters=50)), tracing
+    off and then on: each mode's unit, its records and the deltas of the
+    integration and QP-build counters."""
+    sut, v = _crane_system()
+    out = dict(sut=sut)
+    for mode in ("off", "on"):
+        tlog.timers.reset()
+        i0, b0 = tomu.INTEGRATIONS, tdocp.QP_BUILDS
+        tlog.set_tracing(mode == "on")
+        try:
+            unit = sut.run(v)
+        finally:
+            tlog.set_tracing(False)
+        out[mode] = dict(unit=unit, records=list(tlog.timers.records),
+                         integrations=tomu.INTEGRATIONS - i0,
+                         builds=tdocp.QP_BUILDS - b0)
+    tlog.timers.reset()
+    return out
+
+
+def test_crane_reference_qp_matches_program():
+    """The benchmark's plain crane (its own RK4 and hand-written
+    sensitivities) builds the program's QP on seeded draws: every float
+    field to 1e-12 of its largest finite entry, infinities and masks
+    equal; its base iterate is the program's."""
+    sut, v = _crane_system()
+    _, qp = sut.prg.make_qp_batch(v, sut.Q)
+    ref = rcrane.build_qp(sut.cfg, v, sut.Q)
+    assert torch.equal(rcrane.base_iterate(sut.cfg, CPU), sut.prg.setup())
+    for key, want in ref.items():
+        got = getattr(qp, key)
+        assert got.shape == want.shape, key
+        if want.dtype == torch.bool:
+            assert torch.equal(got, want), key
+            continue
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), fin), key
+        assert torch.equal(got[~fin], want[~fin]), key
+        if fin.any():
+            gap = float((got[fin] - want[fin]).abs().max())
+            assert gap <= 1e-12 * float(want[fin].abs().max()), (key, gap)
+
+
+def test_crane_reference_A_is_its_rk4_maps_derivative():
+    """The reference's A (RK4's forward-sensitivity recursion) against
+    central differences of its own stage map, step 1e-6: the differences'
+    error is O(1e-12) of the entries here, held at 1e-7 of the largest;
+    tf passes through, so A's first row is the unit row."""
+    sut, v = _crane_system()
+    cfg, nx, nv = sut.cfg, rcrane.NX, rcrane.NV
+    A = rcrane.build_qp(cfg, v, sut.Q)["A"]
+    eps = 1e-6
+    cols = []
+    for j in range(nv):
+        step = torch.zeros_like(v)
+        step[..., :-1, j] = eps
+        up, dn = ((rcrane.build_qp(cfg, w, sut.Q)["b"] + w[..., 1:, :nx])
+                  for w in (v + step, v - step))
+        cols.append((up - dn) / (2 * eps))
+    fd = torch.stack(cols, dim=-1)
+    assert float((A - fd).abs().max()) <= 1e-7 * float(A.abs().max())
+    assert torch.equal(A[..., 0, :], torch.eye(nx, nv, dtype=A.dtype)[0]
+                       .expand(A.shape[:-2] + (nv,)))
+
+
+def test_crane_batch_solves_and_passes_the_benchmarks_check(crane_solves):
+    """Every draw OPTIMAL, and portbench's check (the reference's QP, its
+    presolve and the certificate) finds nothing wrong."""
+    sut, unit = crane_solves["sut"], crane_solves["off"]["unit"]
+    answer = sut.outputs()
+    assert bool(answer(unit)["optimal"].all())
+    numbers, attempted, failed = bcheck.judge(rcrane, sut.cfg, [unit],
+                                              answer, sut.Q)
+    assert (attempted, failed) == (sut.batch, 0), numbers
+    assert numbers["viol_gap"]["value"] == 0.0
+
+
+def test_crane_check_fails_x_moved_by_1e6(crane_solves):
+    """The same answers with x moved by 1e-6 fail every QP of the check
+    (the equality residuals pass the 1e-9 primal limit)."""
+    sut, unit = crane_solves["sut"], crane_solves["off"]["unit"]
+    moved = dataclasses.replace(
+        unit, state=dataclasses.replace(unit.state, x=unit.state.x + 1e-6))
+    numbers, attempted, failed = bcheck.judge(rcrane, sut.cfg, [moved],
+                                              sut.outputs(), sut.Q)
+    assert failed == attempted == sut.batch
+    assert numbers["primal"]["value"] > sut.cfg["limits"]["primal"]
+
+
+def test_crane_build_spans_and_counters(crane_solves):
+    """Traced, docp.eval_vals and docp.eval_derivs sit in
+    docp.make_qp_batch; the build integrates the horizon twice (values,
+    then again inside jacfwd), so INTEGRATIONS / QP_BUILDS reads 2 with
+    tracing on and off; off, nothing is recorded and the answers are the
+    same to the bit."""
+    off, on = crane_solves["off"], crane_solves["on"]
+    assert off["records"] == []
+    for mode in (off, on):
+        assert mode["builds"] == 1
+        assert mode["integrations"] / mode["builds"] == 2.0
+    recs = on["records"]
+    by_id = {r.id: r for r in recs}
+    evals = [r for r in recs
+             if r.name in ("docp.eval_vals", "docp.eval_derivs")]
+    assert sorted(r.name for r in evals) == ["docp.eval_derivs",
+                                             "docp.eval_vals"]
+    assert all(by_id[r.parent].name == "docp.make_qp_batch" for r in evals)
+    a, b = off["unit"].state, on["unit"].state
+    for x, y in zip(_state_leaves(a), _state_leaves(b), strict=True):
+        assert torch.equal(x, y)
+    assert torch.equal(off["unit"].viol, on["unit"].viol)
+
+
 # -- the comparisons whose JAX side runs in the background -------------------------
 
 import time  # noqa: E402
